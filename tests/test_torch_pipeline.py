@@ -1,0 +1,152 @@
+"""The port's pipeline layer: OfflinePIV end to end against the JAX
+OfflinePIV (running the interpreted Pallas shift) on the same BMP folder,
+the host tail, the I/O copies, the prefetcher, the device rules, and a
+source scan that keeps JAX and the JAX package out of the port."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from torchpiv_tpu.io.dataset import list_pairs as jax_list_pairs
+from torchpiv_tpu.io.decode import imread_gray as jax_imread_gray
+from torchpiv_tpu.pipeline import OfflinePIV as JaxOfflinePIV
+from torchpiv_tpu.pipeline import finalize_fields as jax_finalize_fields
+from torchpiv_tpu_torch import OfflinePIV
+from torchpiv_tpu_torch.io.dataset import PIVDataset, list_pairs
+from torchpiv_tpu_torch.io.decode import imread_gray, imwrite_gray
+from torchpiv_tpu_torch.io.prefetch import PairPrefetcher
+from torchpiv_tpu_torch.pipeline import finalize_fields
+from torchpiv_tpu_torch.utils.synthetic import particle_pair
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _write_pairs(folder, n, holes=True):
+    for i in range(n):
+        fa, fb = particle_pair((256, 256), (3.3, -2.1), seed=20 + i)
+        if holes:  # a particle-free corner: invalid vectors, so infill runs
+            fa[:72, :72] = 8
+            fb[:72, :72] = 8
+        imwrite_gray(str(folder / f"p{i}_a.bmp"), fa)
+        imwrite_gray(str(folder / f"p{i}_b.bmp"), fb)
+
+
+def test_offline_piv_matches_jax_offline_piv(tmp_path):
+    _write_pairs(tmp_path, 3)
+    kw = dict(file_fmt=".bmp", wind_size=64, overlap=32, multipass=2,
+              multipass_mode="CWS", dt=2.0, scale=0.05, folder_mode="pairs")
+    want = list(JaxOfflinePIV(str(tmp_path), device="cpu",
+                              engine_options={"pallas_interpret": True}, **kw)())
+    got = list(OfflinePIV(str(tmp_path), device="cpu", batch_size=2, **kw)())
+    assert len(got) == len(want) == 3
+    unit = 0.05 / 2.0 * 1000  # px -> output units
+    for (ox, oy, ou, ov), (rx, ry, ru, rv) in zip(got, want):
+        np.testing.assert_array_equal(ox, rx)
+        np.testing.assert_array_equal(oy, ry)
+        for a, b in ((ou, ru), (ov, rv)):
+            d = np.abs(np.asarray(a) - np.asarray(b)) / unit
+            assert np.isfinite(a).all()
+            assert np.sqrt(np.mean(d ** 2)) < 0.01
+            assert (d > 0.01).mean() < 0.02
+
+
+def test_finalize_fields_matches_jax():
+    rng = np.random.default_rng(0)
+    u = rng.normal(3.0, 0.1, (15, 15)).astype(np.float32)
+    v = rng.normal(-2.0, 0.1, (15, 15)).astype(np.float32)
+    inval = rng.uniform(size=(15, 15)) < 0.05
+    x, y = np.meshgrid(np.arange(15.0) * 16 + 32, np.arange(15.0) * 16 + 32)
+    for mask in (inval, None, np.ones((15, 15), bool)):
+        got = finalize_fields(u, v, mask, x, y, 0.05, 2.0)
+        want = jax_finalize_fields(u, v, mask, x, y, 0.05, 2.0)
+        if want is None:
+            assert got is None
+            continue
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_bmp_round_trip_and_jax_decoder(tmp_path):
+    img = np.random.default_rng(1).integers(0, 256, (37, 61), dtype=np.uint8)
+    path = str(tmp_path / "f.bmp")
+    imwrite_gray(path, img)
+    np.testing.assert_array_equal(imread_gray(path), img)
+    np.testing.assert_array_equal(jax_imread_gray(path), img)
+    (tmp_path / "bad.bmp").write_bytes(b"BM" + bytes(10))
+    assert imread_gray(str(tmp_path / "bad.bmp")) is None
+
+
+@pytest.mark.parametrize("mode", ["pairs", "sequential"])
+def test_list_pairs_matches_jax(tmp_path, mode):
+    for name in ("img10.bmp", "img2.bmp", "img1.bmp", "img3.bmp", "x.txt"):
+        (tmp_path / name).write_bytes(b"")
+    assert list_pairs(str(tmp_path), ".bmp", mode) == \
+        jax_list_pairs(str(tmp_path), ".bmp", mode)
+
+
+def test_prefetcher_batches_in_order_and_skips_unreadable(tmp_path):
+    _write_pairs(tmp_path, 5, holes=False)
+    (tmp_path / "p2_b.bmp").write_bytes(b"")  # unreadable
+    ds = PIVDataset(str(tmp_path), ".bmp")
+    seen = []
+    for a, b, ids in PairPrefetcher(ds, 2, torch.device("cpu"), num_threads=2):
+        assert a.shape == b.shape == (len(ids), 256, 256) and a.dtype == torch.uint8
+        for k, i in enumerate(ids):
+            fa, fb = ds[i]
+            assert np.array_equal(a[k].numpy(), fa) and np.array_equal(b[k].numpy(), fb)
+        seen += ids
+    assert seen == [0, 1, 3, 4]
+
+
+def test_offline_piv_skip_and_max_pairs(tmp_path):
+    _write_pairs(tmp_path, 3, holes=False)
+    piv = OfflinePIV(str(tmp_path), device="cpu", skip_pairs=1, max_pairs=1)
+    assert len(piv) == 1
+    (out,) = list(piv())
+    x, y, u, v = out
+    assert u.shape == piv.engine.final_field_shape
+    assert abs(np.median(u) / 1000 - 3.3) < 0.1 and abs(-np.median(v) / 1000 + 2.1) < 0.1
+
+
+@pytest.mark.parametrize("kw", [
+    dict(background="auto"), dict(preprocess="clahe"),
+    dict(engine_options={"frame_mask": np.zeros((256, 256), bool)}),
+    dict(engine_options={"cws_interp": "bicubic"}),
+])
+def test_offline_piv_rejects_what_is_not_ported(tmp_path, kw):
+    _write_pairs(tmp_path, 1, holes=False)
+    with pytest.raises(ValueError):
+        OfflinePIV(str(tmp_path), device="cpu", multipass=2, **kw)
+
+
+def test_offline_piv_default_device_needs_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _write_pairs(tmp_path, 1, holes=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OfflinePIV(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OfflinePIV(str(tmp_path), device="auto")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", "") == "__import__":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value)
+
+
+def test_port_never_imports_jax_or_the_jax_package():
+    files = sorted((REPO / "torchpiv_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 15
+    for path in files:
+        for mod in _imported_modules(path):
+            root = mod.split(".")[0]
+            assert root not in ("jax", "jaxlib", "torchpiv_tpu"), f"{path}: {mod}"

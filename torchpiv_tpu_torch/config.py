@@ -1,0 +1,191 @@
+"""``PIVConfig``: the static configuration of a multipass run.
+
+A twin of ``PIVConfig`` in ``torchpiv_tpu/models/multipass.py``: the same
+field names, defaults, ``pass_schedule()`` and validation, so a JAX config
+converts one to one (``from_dict``).
+
+Knobs whose only effect is a TPU lowering are accepted and do nothing here:
+``use_pallas``, ``pallas_interpret``, ``shift_variant``, ``shift_maps``,
+``extract_variant``, ``complex_mm``, ``correlator`` and ``dft_precision``.
+The port always correlates in float32 through ``torch.fft`` and always
+shifts windows with its CUDA kernel (its plain version on the CPU).
+
+Knobs that the port does not implement yet raise ``ValueError`` naming the
+knob (``NOT_PORTED``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+MAX_SHIFT_WIND = 128  # refine-pass window limit of the shift kernel
+
+# knob -> predicate on its value that is true when the value is not ported
+NOT_PORTED = {
+    "multipass_mode": lambda v: v == "DEF",
+    "cws_interp": lambda v: v == "bicubic",
+    "peakfit": lambda v: v == "pallas",
+    "fused": lambda v: v in ("split", "on"),
+    "window_weight": lambda v: v is not None,
+    "correlation": lambda v: v == "rpc",
+    "subpixel": lambda v: v == "gauss2d",
+    "infill": lambda v: v == "fused",
+    "median_filter": lambda v: v is not None,
+    "u_limits": lambda v: v is not None,
+    "v_limits": lambda v: v is not None,
+    "global_std": lambda v: v is not None,
+    "second_peak_fallback": lambda v: bool(v),
+    "dtype": lambda v: v != "float32",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class PIVConfig:
+    """Static configuration of a multipass run (see the JAX twin for each
+    knob's meaning)."""
+
+    frame_shape: Tuple[int, int]
+    wind_size: int = 64
+    overlap: int = 32
+    multipass: int = 1
+    multipass_mode: str = "CWS"  # "CWS" | "DWS" ("DEF" not ported)
+    multipass_scale: float = 2.0
+    validate: bool = True
+    val_ratio: float = 1.2
+    validation_window: int = 3
+    infill: str = "host"  # "host" | "none" ("fused" not ported)
+    dtype: str = "float32"
+    use_pallas: str = "auto"  # TPU lowering only: no effect
+    pallas_interpret: bool = False  # TPU lowering only: no effect
+    edge_exact: bool = True  # flat-wrap padding of the shifted frames
+    max_shift: Optional[int] = None  # shift clamp, default wind // 2
+    shift_variant: str = "rolls"  # TPU lowering only: no effect
+    shift_maps: str = "rows"  # TPU lowering only: no effect
+    correlator: str = "auto"  # TPU lowering only: always f32 torch.fft
+    peakfit: str = "xla"  # "xla" ("pallas" not ported)
+    subpixel: str = "gauss3"  # "gauss3" ("gauss2d" not ported)
+    dft_precision: str = "high"  # TPU lowering only: always f32 torch.fft
+    complex_mm: str = "real"  # TPU lowering only: no effect
+    fused: str = "auto"  # "auto" | "off" ("split", "on" not ported)
+    median_filter: Optional[str] = None  # not ported
+    median_threshold: float = 2.0
+    u_limits: Optional[Tuple[float, float]] = None  # not ported
+    v_limits: Optional[Tuple[float, float]] = None  # not ported
+    global_std: Optional[float] = None  # not ported
+    cws_interp: str = "bilinear"  # "bilinear" ("bicubic" not ported)
+    def_margin: int = 2  # DEF only
+    window_weight: Optional[str] = None  # not ported
+    correlation: str = "scc"  # "scc" ("rpc" not ported)
+    rpc_diameter: float = 2.8
+    second_peak_fallback: bool = False  # not ported
+    fallback_threshold: float = 2.0
+    extract_variant: str = "stack"  # TPU lowering only: no effect
+
+    def pass_schedule(self) -> List[Tuple[int, int]]:
+        """Per-pass (wind_size, overlap), shrunk by int floor-division per
+        pass exactly like the reference constructor."""
+        sched = [(self.wind_size, self.overlap)]
+        w, o = self.wind_size, self.overlap
+        for _ in range(self.multipass - 1):
+            w = int(w // self.multipass_scale)
+            o = int(o // self.multipass_scale)
+            sched.append((w, o))
+        return sched
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PIVConfig":
+        """Config from ``dataclasses.asdict`` of a JAX ``PIVConfig`` (or any
+        mapping of field names); raises on unknown and unported knobs."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(d) - names)
+        if unknown:
+            raise ValueError(f"unknown PIVConfig fields {unknown}")
+        kw = dict(d)
+        for k in ("frame_shape", "u_limits", "v_limits"):
+            if kw.get(k) is not None:
+                kw[k] = tuple(kw[k])
+        return cls(**kw)
+
+    def __post_init__(self):
+        # the JAX twin's checks, in its order
+        if self.overlap >= self.wind_size:
+            raise ValueError("Overlap has to be smaller than the window_size")
+        H, W = self.frame_shape
+        if self.wind_size > H or self.wind_size > W:
+            raise ValueError("window size cannot be larger than the image")
+        if self.multipass_mode not in ("CWS", "DWS", "DEF"):
+            raise ValueError(f"unknown multipass_mode {self.multipass_mode!r}")
+        if self.infill not in ("host", "fused", "none"):
+            raise ValueError(f"unknown infill {self.infill!r}")
+        if self.use_pallas not in ("auto", "on", "off"):
+            raise ValueError(f"unknown use_pallas {self.use_pallas!r}")
+        if self.fused not in ("auto", "split", "on", "off"):
+            raise ValueError(f"unknown fused {self.fused!r}")
+        if self.window_weight not in (None, "gaussian"):
+            raise ValueError(f"unknown window_weight {self.window_weight!r}")
+        if self.cws_interp not in ("bilinear", "bicubic"):
+            raise ValueError(f"unknown cws_interp {self.cws_interp!r}")
+        if self.window_weight is not None and self.fused == "on":
+            raise ValueError("window_weight is not supported by the fused "
+                             "pass kernel; use fused='off'")
+        if self.correlator not in ("auto", "fft", "matmul"):
+            raise ValueError(f"unknown correlator {self.correlator!r}")
+        if self.correlation not in ("scc", "rpc"):
+            raise ValueError(f"unknown correlation {self.correlation!r}")
+        if self.correlation == "rpc":
+            if self.fused in ("split", "on"):
+                raise ValueError("correlation='rpc' runs in the XLA chain; "
+                                 "the fused pass kernels do not support it "
+                                 "(use fused='off')")
+            if not self.rpc_diameter > 0:
+                raise ValueError("rpc_diameter must be a positive particle "
+                                 "image diameter in px")
+        if self.second_peak_fallback:
+            if not self.validate:
+                raise ValueError("second_peak_fallback requires validate=True")
+            if self.peakfit == "pallas":
+                raise ValueError("second_peak_fallback runs in the XLA "
+                                 "peak-fit chain; use peakfit='xla'")
+            if self.fused in ("split", "on"):
+                raise ValueError("second_peak_fallback is not supported by "
+                                 "the fused pass kernels (use fused='off')")
+            if not self.fallback_threshold > 0:
+                raise ValueError("fallback_threshold must be positive")
+        if self.dft_precision not in ("default", "high", "highest"):
+            raise ValueError(f"unknown dft_precision {self.dft_precision!r}")
+        if self.complex_mm not in ("direct", "real", "gauss"):
+            raise ValueError(f"unknown complex_mm {self.complex_mm!r}")
+        if self.subpixel not in ("gauss3", "gauss2d"):
+            raise ValueError(f"unknown subpixel {self.subpixel!r}")
+        if self.subpixel != "gauss3" and self.peakfit == "pallas":
+            raise ValueError("subpixel='gauss2d' requires peakfit='xla'")
+        if self.extract_variant not in ("stack", "tilemajor"):
+            raise ValueError(
+                f"unknown extract_variant {self.extract_variant!r}")
+        if self.shift_maps not in ("rows", "prefetch"):
+            raise ValueError(f"unknown shift_maps {self.shift_maps!r}")
+        if not 1 <= self.def_margin <= 8:
+            raise ValueError("def_margin must be in [1, 8]")
+        for name, lim in (("u_limits", self.u_limits),
+                          ("v_limits", self.v_limits)):
+            if lim is not None and (len(lim) != 2 or not lim[0] < lim[1]):
+                raise ValueError(f"{name} must be (min, max) with min < max")
+        if self.global_std is not None and self.global_std <= 0:
+            raise ValueError("global_std must be a positive sigma multiple")
+        for p, (w, o) in enumerate(self.pass_schedule()):
+            if w < 4 or o >= w or o < 0:
+                raise ValueError(
+                    f"pass {p + 1} degenerates to window {w}, overlap {o} — "
+                    f"reduce multipass/multipass_scale"
+                )
+        # what the port does not implement yet
+        for knob, unported in NOT_PORTED.items():
+            value = getattr(self, knob)
+            if unported(value):
+                raise ValueError(
+                    f"{knob}={value!r} is not ported to the PyTorch engine yet")
+        for p, (w, _) in enumerate(self.pass_schedule()[1:], start=2):
+            if w > MAX_SHIFT_WIND:
+                raise ValueError(
+                    f"wind_size: pass {p} window {w} > {MAX_SHIFT_WIND} px "
+                    f"needs the XLA shift path, which is not ported")

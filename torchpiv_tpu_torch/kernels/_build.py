@@ -1,0 +1,96 @@
+"""Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles at first use into a shared library with a
+plain C interface, under ``torchpiv_tpu_torch/_build/``.  The library's file
+name carries a hash of its source and flags, so an edited source builds
+anew and an unchanged one loads from disk.  Only sources of this package are
+built; nothing is fetched.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the package's kernels")
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    if not src.is_file():
+        raise FileNotFoundError(f"no kernel source {src}")
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start ``nvcc`` for one source; returns ``(process, tmp, target)`` or
+    None when the library is already built."""
+    so = _target(name)
+    if so.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, so
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, so = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log}")
+    os.replace(tmp, so)
+
+
+def sources() -> list:
+    """Names of every kernel source of the package."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build() -> None:
+    """Build every source, one ``nvcc`` per source, all started together."""
+    with _lock:
+        started = [(n, _start(n)) for n in sources()]
+        for n, s in started:
+            if s is not None:
+                _finish(n, s)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            s = _start(name)
+            if s is not None:
+                _finish(name, s)
+            lib = ctypes.CDLL(str(_target(name)))
+            _loaded[name] = lib
+        return lib
