@@ -8,17 +8,24 @@ Phases, each failing loudly:
 1. environment: torch/CUDA versions, the card's name and power limit, TF32
    off;
 2. build every CUDA kernel of the package from its sources;
-3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (2048x2048 frames, pass 2: w32/o16, a batch of 4), with
-   times: kernel, plain version, bound, and one PyTorch library call that
-   computes the same function (``grid_sample``, a yardstick only);
-4. the main path: ``OfflinePIV`` over 8 synthetic 2048x2048 BMP pairs with a
-   uniform displacement, 64 px windows, 32 px overlap, 2-pass CWS; checks
+3. each kernel (bilinear and bicubic window shift, window deformation,
+   fused peak fit) against its plain PyTorch version on the card, at the
+   main paths' shapes (2048x2048 frames, pass 2: w32/o16, a batch of 4;
+   the peak fit at pass 1 too), with times: kernel, plain version, bound,
+   and one PyTorch library call that computes the same function where
+   there is one (``grid_sample`` bilinear, a yardstick only);
+4. the first path: ``OfflinePIV`` over 8 synthetic 2048x2048 BMP pairs with
+   a uniform displacement, 64 px windows, 32 px overlap, 2-pass CWS; checks
    the recovered displacement, the valid share and the kernel launch
    counts, and prints pairs/s;
-5. the engine's time per batch and its device time by kernel;
-6. the CUDA engine against the CPU engine (plain versions) on one full-size
-   pair.
+5. the DEF path: ``OfflinePIV`` over 8 sheared pairs, 2-pass DEF with the
+   fused peak fit; checks the recovered shear, the valid share and the
+   launch counts, and prints pairs/s beside the same run with the torch-op
+   peak fit; then one batch each of CWS + bicubic and DEF + bicubic;
+6. the engine's time per batch and its device time by kernel, CWS and DEF
+   (both peak fits);
+7. the CUDA engine against the CPU engine (plain versions) on one full-size
+   pair, CWS and DEF.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -38,10 +45,13 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
-DISPLACEMENT = (3.3, -2.1)  # px, +x right, +y down
+DISPLACEMENT = (3.3, -2.1)  # px, +x right, +y down (the CWS path)
+SHEAR = (1.0, 0.004)  # u = 1 + 0.004 y px, v = 0 (the DEF path)
 FRAME = (2048, 2048)
-N_PAIRS = 8
+N_PAIRS = 8  # uniform pairs, the CWS path
+N_SHEAR_PAIRS = 8  # sheared pairs, the DEF path
 BATCH = 4
+CSRC = "torchpiv_tpu_torch/kernels/csrc/"
 
 
 def log(msg: str) -> None:
@@ -104,18 +114,35 @@ def shift_grid(ops, w: int) -> torch.Tensor:
     return torch.stack([gx, gy], dim=-1).reshape(B, -1, w, 2)
 
 
-def phase_kernels() -> dict:
-    """``shift_windows`` against its plain version at the pass-2 shape."""
-    from torchpiv_tpu_torch.kernels.shift import launch, shift_windows
-    from torchpiv_tpu_torch.ops.shifts import blend_reference, shift_operands
+def roofline(n_bytes: float, n_flops: float):
+    """``(bound_ms, bound_by)``: the larger of bytes over the memory rate
+    and operations over the float32 rate."""
+    t_bytes = n_bytes / H100_BYTES_PER_S
+    t_flops = n_flops / H100_F32_FLOPS
+    return (max(t_bytes, t_flops) * 1e3,
+            "bytes" if t_bytes >= t_flops else "operations")
 
+
+def kernel_row(name, source, replaces, max_err, ms, plain_ms, n_bytes, n_flops,
+               library_ms, **extra) -> dict:
+    bound_ms, bound_by = roofline(n_bytes, n_flops)
+    row = {"name": name, "route": "cuda", "source": CSRC + source,
+           "replaces": replaces, "launches": None, "max_abs_err": max_err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms, **extra}
+    log(json.dumps({"phase": name, **{k: row[k] for k in row if k not in (
+        "route", "source", "replaces", "launches")},
+        "bytes": n_bytes, "flops": n_flops}))
+    return row
+
+
+def window_count(w: int, o: int) -> int:
     H, W = FRAME
-    w, o = 32, 16
-    n = ((H - w) // (w - o) + 1) * ((W - w) // (w - o) + 1)
-    dev = torch.device("cuda")
-    g = torch.Generator(device="cpu").manual_seed(0)
-    frames = torch.randint(0, 256, (BATCH, H, W), generator=g).float().to(dev)
-    cases = {
+    return ((H - w) // (w - o) + 1) * ((W - w) // (w - o) + 1)
+
+
+def shift_cases(n: int, g) -> dict:
+    return {
         # fractional shifts, some beyond the +-S = 16 px clamp
         "fractional": (torch.rand(BATCH, n, generator=g) * 48 - 24,
                        torch.rand(BATCH, n, generator=g) * 48 - 24),
@@ -126,82 +153,301 @@ def phase_kernels() -> dict:
         "mixed": ((torch.rand(BATCH, n, generator=g) * 20 - 10).round(),
                   torch.rand(BATCH, n, generator=g) * 20 - 10),
     }
-    kw = dict(frame_shape=FRAME, wind_size=w, overlap=o)
-    max_err = 0.0
-    for name, (vx, vy) in cases.items():
-        vx, vy = vx.to(dev), vy.to(dev)
-        got = shift_windows(frames, vx, vy, **kw)
+
+
+def phase_shift_kernels(frames: torch.Tensor) -> list:
+    """``shift_windows`` (bilinear) and ``shift_windows_bicubic`` against
+    their plain versions at the pass-2 shape."""
+    from torchpiv_tpu_torch.kernels.shift import launch, shift_windows
+    from torchpiv_tpu_torch.ops.shifts import (blend_reference,
+                                               blend_reference_bicubic,
+                                               shift_operands)
+
+    w, o = 32, 16
+    n = window_count(w, o)
+    dev = frames.device
+    g = torch.Generator(device="cpu").manual_seed(0)
+    cases = shift_cases(n, g)
+    rows = []
+    for interp, plain, name, tol in (
+            ("bilinear", blend_reference, "shift_windows", 1e-4),
+            ("bicubic", blend_reference_bicubic, "shift_windows_bicubic", 1e-3)):
+        kw = dict(frame_shape=FRAME, wind_size=w, overlap=o, interp=interp)
+        max_err = 0.0
+        for case, (vx, vy) in cases.items():
+            vx, vy = vx.to(dev), vy.to(dev)
+            got = shift_windows(frames, vx, vy, **kw)
+            ops = shift_operands(frames, vx, vy, **kw)
+            want = plain(ops, w)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            max_err = max(max_err, err)
+            log(f"{name} {case}: max |kernel - plain| = {err!r}")
+            # explicitly rounded sums in the plain version's order: equal to
+            # the last bit is expected; allowed are 1e-4 of a grey level
+            # (bilinear) and 1e-3 (bicubic) for fractional shifts, nothing
+            # for integer ones (tile copies; bicubic weights (0, 1, 0, 0))
+            if case == "integer" or (case == "mixed" and interp == "bilinear"):
+                check(torch.equal(got, want), f"{name} {case} must be bit-exact")
+            else:
+                check(err <= tol, f"{name} {case} shifts disagree by {err}")
+        if interp == "bicubic":  # integer shifts: the bilinear kernel's copy
+            vx, vy = (t.to(dev) for t in cases["integer"])
+            inside = (vx < w // 2) & (vy < w // 2)  # +S clamps the bilinear tile
+            a = shift_windows(frames, vx, vy, **kw)
+            b = shift_windows(frames, vx, vy, **dict(kw, interp="bilinear"))
+            check(torch.equal(a[inside], b[inside]),
+                  "bicubic integer shifts must equal the integer copy")
+
+        vx, vy = (t.to(dev) for t in cases["fractional"])
         ops = shift_operands(frames, vx, vy, **kw)
-        want = blend_reference(ops, w)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        max_err = max(max_err, err)
-        log(f"shift_windows {name}: max |kernel - plain| = {err!r}")
-        if name == "fractional":
-            # explicitly rounded blend in the plain version's order: equal
-            # to the last bit is expected, 1e-4 of a grey level allowed
-            check(err <= 1e-4, f"fractional shifts disagree by {err}")
-        else:
-            check(torch.equal(got, want), "integer shifts must be bit-exact")
+        ms = cuda_ms(lambda: launch(ops, w, interp))
+        wrapper_ms = cuda_ms(lambda: shift_windows(frames, vx, vy, **kw))
+        plain_ms = cuda_ms(lambda: plain(ops, w), reps=5)
+        library_ms = None
+        if interp == "bilinear":
+            grid = shift_grid(ops, w)
+            img = ops.frame[:, None]
+            library_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(
+                img, grid, mode="bilinear", padding_mode="border",
+                align_corners=True))
+        # bicubic has no library call: grid_sample's bicubic is a = -0.75
+        B, Hp, Wp = ops.frame.shape
+        n_bytes = B * (Hp * Wp * 4 + n * 4 * 4 + n * w * w * 4)
+        # a pixel: 4 products + 3 sums (bilinear); 4 rows of 4 products and
+        # 4 sums, then 4 products and 4 sums (bicubic)
+        n_flops = B * n * w * w * (7 if interp == "bilinear" else 40)
+        rows.append(kernel_row(
+            name, f"{name}.cu",
+            "torchpiv_tpu/kernels/shift_pallas.py:" + ("44" if interp == "bilinear" else "166"),
+            max_err, ms, plain_ms, n_bytes, n_flops, library_ms,
+            wrapper_ms=wrapper_ms, shape=[B, Hp, Wp, n, w]))
+    return rows
 
-    vx, vy = (t.to(dev) for t in cases["fractional"])
-    ops = shift_operands(frames, vx, vy, **kw)
-    grid = shift_grid(ops, w)
-    img = ops.frame[:, None]
-    ms = cuda_ms(lambda: launch(ops, w))
-    wrapper_ms = cuda_ms(lambda: shift_windows(frames, vx, vy, **kw))
-    plain_ms = cuda_ms(lambda: blend_reference(ops, w), reps=5)
-    library_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(
-        img, grid, mode="bilinear", padding_mode="border", align_corners=True))
+
+def def_grid(ops, w: int) -> torch.Tensor:
+    """``grid_sample`` coordinates of every pixel of every deformed window
+    (align_corners; the residual is not saturated: a yardstick only)."""
     B, Hp, Wp = ops.frame.shape
-    n_bytes = B * (Hp * Wp * 4 + n * 4 * 4 + n * w * w * 4)
-    n_flops = B * n * w * w * 7
-    bound_ms = max(n_bytes / H100_BYTES_PER_S, n_flops / H100_F32_FLOPS) * 1e3
-    bound_by = ("bytes" if n_bytes / H100_BYTES_PER_S >= n_flops / H100_F32_FLOPS
-                else "operations")
-    row = {
-        "name": "shift_windows", "route": "cuda",
-        "source": "torchpiv_tpu_torch/kernels/csrc/shift_windows.cu",
-        "replaces": "torchpiv_tpu/kernels/shift_pallas.py:44",
-        "launches": None, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
+    dev = ops.frame.device
+    n = torch.arange(ops.n_rows * ops.n_cols, device=dev)
+    row0 = ((n // ops.n_cols) * ops.step + ops.off + ops.dy).float() + ops.fy
+    col0 = ((n % ops.n_cols) * ops.step + ops.off + ops.dx).float() + ops.fx
+    ar = torch.arange(w, device=dev, dtype=torch.float32)
+    off = ar - (w - 1) / 2.0
+    ioff, joff = off[:, None], off[None, :]
+    e = (Ellipsis, None, None)
+    ys = row0[e] + ar[:, None] + ops.gyi[e] * ioff + ops.gyj[e] * joff
+    xs = col0[e] + ar[None, :] + ops.gxi[e] * ioff + ops.gxj[e] * joff
+    gy = 2.0 * ys / (Hp - 1) - 1.0
+    gx = 2.0 * xs / (Wp - 1) - 1.0
+    return torch.stack([gx, gy], dim=-1).reshape(B, -1, w, 2)
+
+
+def phase_def_kernel(frames: torch.Tensor) -> dict:
+    """``def_windows`` against its plain version at the pass-2 shape, in both
+    interpolations."""
+    from torchpiv_tpu_torch.kernels.deform import def_windows, launch
+    from torchpiv_tpu_torch.kernels.shift import shift_windows
+    from torchpiv_tpu_torch.ops.deform import def_operands, def_reference
+
+    w, o, M = 32, 16, 2
+    n = window_count(w, o)
+    dev = frames.device
+    g = torch.Generator(device="cpu").manual_seed(1)
+
+    def maps(reach, slope, integer_block=0):
+        vx = torch.rand(BATCH, n, generator=g) * 2 * reach - reach
+        vy = torch.rand(BATCH, n, generator=g) * 2 * reach - reach
+        grads = [(torch.rand(BATCH, n, generator=g) * 2 - 1) * slope for _ in range(4)]
+        if integer_block:  # integer centres without gradient: tile copies
+            vx[:, :integer_block] = vx[:, :integer_block].round()
+            vy[:, :integer_block] = vy[:, :integer_block].round()
+            for gr in grads:
+                gr[:, :integer_block] = 0.0
+        return [t.to(dev) for t in (vx, vy, *grads)]
+
+    n_int = 2048
+    cases = {
+        # centres beyond the +-S = 16 px clamp, gradients in +-0.05 px/px,
+        # the first 2048 windows with integer centres and no gradient
+        "general": maps(24.0, 0.05, integer_block=n_int),
+        # gradients of up to 0.6 px/px: +-9 px across the window, far past
+        # the margin of 2, so most residuals sit at the clip bounds
+        "saturating": maps(24.0, 0.6),
     }
-    log(json.dumps({"phase": "shift_windows", "shape": [B, Hp, Wp, n, w],
-                    "kernel_ms": ms, "wrapper_ms": wrapper_ms,
-                    "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "library_ms": library_ms, "bytes": n_bytes,
-                    "flops": n_flops}))
-    log("kernels of the port: shift_windows")
-    return row
+    out = {}
+    for interp, tol in (("bilinear", 1e-4), ("bicubic", 1e-3)):
+        kw = dict(frame_shape=FRAME, wind_size=w, overlap=o, margin=M, interp=interp)
+        max_err = 0.0
+        for case, m in cases.items():
+            got = def_windows(frames, *m, **kw)
+            ops = def_operands(frames, *m, **kw)
+            want = def_reference(ops, w)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            max_err = max(max_err, err)
+            log(f"def_windows {interp} {case}: max |kernel - plain| = {err!r}")
+            # explicitly rounded residual, weights and sums in the plain
+            # version's order: equal to the last bit is expected
+            check(err <= tol, f"def_windows {interp} {case} disagrees by {err}")
+            if case == "general":
+                check(torch.equal(got[:, :n_int], want[:, :n_int]),
+                      "integer-centre zero-gradient windows must be bit-exact")
+                # ... and equal the shift kernel's integer copy (away from
+                # +S, where that kernel's narrower pad clamps its tile)
+                vx, vy = m[0][:, :n_int], m[1][:, :n_int]
+                copy = shift_windows(frames, m[0], m[1], frame_shape=FRAME,
+                                     wind_size=w, overlap=o)[:, :n_int]
+                inside = (vx < w // 2) & (vy < w // 2)
+                check(torch.equal(got[:, :n_int][inside], copy[inside]),
+                      f"def_windows {interp} integer windows != shift_windows")
+                del copy
+            del got, want
+        m = cases["general"]
+        ops = def_operands(frames, *m, **kw)
+        ms = cuda_ms(lambda: launch(ops, w))
+        wrapper_ms = cuda_ms(lambda: def_windows(frames, *m, **kw))
+        plain_ms = cuda_ms(lambda: def_reference(ops, w), reps=3)
+        library_ms = None
+        if interp == "bilinear":
+            grid = def_grid(ops, w)
+            img = ops.frame[:, None]
+            library_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(
+                img, grid, mode="bilinear", padding_mode="border",
+                align_corners=True))
+            del grid
+        # bicubic has no library call: grid_sample's bicubic is a = -0.75
+        B, Hp, Wp = ops.frame.shape
+        n_bytes = B * (Hp * Wp * 4 + n * 8 * 4 + n * w * w * 4)
+        # a pixel: two residuals (2 products, 2 sums, 2 clips each), two
+        # floors, then bilinear: 4 hats of 3 and 4 taps of 3; bicubic: 8 Keys
+        # weights of 12 and 16 taps of 3
+        n_flops = B * n * w * w * (14 + (24 if interp == "bilinear" else 144))
+        out[interp] = dict(max_err=max_err, ms=ms, plain_ms=plain_ms,
+                           n_bytes=n_bytes, n_flops=n_flops,
+                           library_ms=library_ms, wrapper_ms=wrapper_ms,
+                           shape=[B, Hp, Wp, n, w, M])
+    lin, cub = out["bilinear"], out["bicubic"]
+    cub_bound, cub_by = roofline(cub["n_bytes"], cub["n_flops"])
+    # one row: the bilinear numbers under the contract's keys (the DEF path
+    # of this script runs bilinear), the bicubic ones beside them
+    return kernel_row(
+        "def_windows", "def_windows.cu", "torchpiv_tpu/kernels/def_pallas.py:73",
+        max(lin["max_err"], cub["max_err"]), lin["ms"], lin["plain_ms"],
+        lin["n_bytes"], lin["n_flops"], lin["library_ms"],
+        wrapper_ms=lin["wrapper_ms"], shape=lin["shape"],
+        bicubic={"ms": cub["ms"], "plain_ms": cub["plain_ms"],
+                 "bound_ms": cub_bound, "bound_by": cub_by,
+                 "library_ms": None, "wrapper_ms": cub["wrapper_ms"],
+                 "max_abs_err": cub["max_err"]})
 
 
-def write_pairs(folder: str) -> None:
+def synthetic_maps(d: int, dev) -> torch.Tensor:
+    """Constant maps and maps with their peak on every edge and corner (the
+    flat-index neighbour wrap and clamp), and an exact tie."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+    maps = torch.rand(11, d, d, generator=g) * 50.0
+    maps[0] = 0.0
+    maps[1] = 0.0
+    for i, (r, c) in enumerate([(0, 0), (0, d - 1), (d - 1, 0), (d - 1, d - 1),
+                                (0, 5), (d - 1, 7), (6, 0), (9, d - 1)], start=2):
+        maps[i, r, c] = 200.0
+    maps[10, 3, 4] = maps[10, 10, 12] = 150.0  # the first index wins
+    # one pedestal pixel below all others, away from the peaks: no sample
+    # that the fit reads lies within 2 of the map minimum, where the kernel's
+    # (x - min) + EPS and the plain version's x + (EPS - min) differ (see
+    # csrc/peakfit.cu)
+    maps[2:, d // 2 + 3, d // 2 + 4] = -4.0
+    return maps.to(dev)
+
+
+def phase_peakfit_kernel(frames_a: torch.Tensor, frames_b: torch.Tensor) -> dict:
+    """``peakfit`` against its plain version on the correlation maps of the
+    two passes of the 4 MP path, with and without validation."""
+    from torchpiv_tpu_torch.kernels.peakfit import launch, peakfit
+    from torchpiv_tpu_torch.ops.correlate import correlate_fft
+    from torchpiv_tpu_torch.ops.peakfit import correlation_to_displacement
+    from torchpiv_tpu_torch.ops.windows import extract_windows
+
+    dev = frames_a.device
+    passes = {}
+    max_err = 0.0
+    for label, (w, o), dc in (("pass1", (64, 32), True), ("pass2", (32, 16), False)):
+        aa = extract_windows(frames_a, w, o)
+        bb = extract_windows(frames_b, w, o)
+        real = correlate_fft(aa, bb, dc_normalize=dc).reshape(-1, w, w).contiguous()
+        del aa, bb
+        maps = torch.cat([real, synthetic_maps(w, dev)]).contiguous()
+        for validate in (True, False):
+            ku, kv, ki = peakfit(maps, validate, 1.2, 3, min_subtract=True)
+            pu, pv, pi = correlation_to_displacement(maps, validate, 1.2, 3,
+                                                     min_subtract=True)
+            torch.cuda.synchronize()
+            err = max((ku - pu).abs().max().item(), (kv - pv).abs().max().item())
+            max_err = max(max_err, err)
+            log(f"peakfit {label} {tuple(maps.shape)} validate={validate}: "
+                f"max |kernel - plain| = {err!r} px")
+            # logf, IEEE division and explicitly rounded sums: equality is
+            # expected; allowed 1e-5 px; the masks must be equal
+            check(err <= 1e-5, f"peakfit {label} u, v disagree by {err}")
+            if validate:
+                check(torch.equal(ki, pi), f"peakfit {label} masks differ")
+                share = ki.float().mean().item()
+                check(0.0 < share < 0.5, f"peakfit {label} invalid share {share}")
+            else:
+                check(ki is None and pi is None, "validate=False returns no mask")
+        ms = cuda_ms(lambda: launch(real, True, 1.2, 3, True))
+        plain_ms = cuda_ms(lambda: correlation_to_displacement(
+            real, True, 1.2, 3, min_subtract=True), reps=5)
+        n_maps = real.shape[0]
+        n_bytes = n_maps * (w * w * 4 + 9)
+        # a sample: min, subtract, add, compare for the maximum; offset,
+        # division, round, two compares and a max for the second peak
+        n_flops = n_maps * w * w * 15
+        bound_ms, bound_by = roofline(n_bytes, n_flops)
+        passes[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, n_bytes=n_bytes, n_flops=n_flops,
+                             shape=list(real.shape))
+        del real, maps
+    p2, p1 = passes["pass2"], passes["pass1"]
+    # no single PyTorch call computes the fit: library_ms stays null
+    return kernel_row(
+        "peakfit", "peakfit.cu", "torchpiv_tpu/experimental/peakfit_pallas.py:34",
+        max_err, p2["ms"], p2["plain_ms"], p2["n_bytes"], p2["n_flops"], None,
+        shape=p2["shape"],
+        pass1={k: p1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")})
+
+
+def phase_kernels(folder: str) -> list:
+    """Every kernel against its plain version; returns the kernels' rows."""
+    from torchpiv_tpu_torch.io.dataset import PIVDataset
+
+    _, a, b = PIVDataset(folder, ".bmp").read_batch(list(range(BATCH)))
+    frames_a = torch.from_numpy(a).cuda().float()
+    frames_b = torch.from_numpy(b).cuda().float()
+    rows = phase_shift_kernels(frames_a)
+    rows.append(phase_def_kernel(frames_a))
+    rows.append(phase_peakfit_kernel(frames_a, frames_b))
+    torch.cuda.empty_cache()
+    log("kernels of the port: " + ", ".join(r["name"] for r in rows))
+    return rows
+
+
+def write_pairs(folder: str, n: int, displacement, seed: int) -> None:
     from torchpiv_tpu_torch.io.decode import imwrite_gray
     from torchpiv_tpu_torch.utils.synthetic import particle_pair
 
-    for i in range(N_PAIRS):
-        fa, fb = particle_pair(FRAME, DISPLACEMENT, seed=100 + i)
+    os.makedirs(folder)
+    for i in range(n):
+        fa, fb = particle_pair(FRAME, displacement, seed=seed + i)
         imwrite_gray(os.path.join(folder, f"p{i}_a.bmp"), fa)
         imwrite_gray(os.path.join(folder, f"p{i}_b.bmp"), fb)
 
 
-def phase_main_path(folder: str, kernels):
-    """OfflinePIV at 4 MP, w64/o32, 2-pass CWS; returns the launch counts
-    and pairs/s."""
-    from torchpiv_tpu_torch import OfflinePIV
-    from torchpiv_tpu_torch.io.dataset import PIVDataset
-
-    piv = OfflinePIV(folder, wind_size=64, overlap=32, multipass=2,
-                     multipass_mode="CWS", batch_size=BATCH)
-    # warm-up (cuFFT plans, the caching allocator) through the engine on
-    # the first batch, which also gives the valid share
-    _, a, b = PIVDataset(folder, ".bmp").read_batch(list(range(BATCH)))
-    _, _, inval = piv.engine(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda())
-    valid = 1.0 - inval.float().mean().item()
-    log(f"engine: valid share {valid:.4f} over the first {BATCH} pairs")
-    check(valid > 0.95, f"valid share {valid}")
-
+def drive(piv, kernels):
+    """Drain ``piv()`` with every launch count set to 0 just before and read
+    just after; returns ``(fields, launches, pairs_per_s)``."""
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
@@ -209,28 +455,134 @@ def phase_main_path(folder: str, kernels):
     fields = list(piv())
     elapsed = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
-    log(f"main path: {len(fields)} pairs in {elapsed:.3f} s = "
-        f"{len(fields) / elapsed:.3f} pairs/s, launches {launches}")
-    check(len(fields) == N_PAIRS, f"{len(fields)} of {N_PAIRS} pairs came out")
-    check(launches["shift_windows"] == 2 * -(-N_PAIRS // BATCH), f"launches {launches}")
+    return fields, launches, len(fields) / elapsed
 
-    unit = 1000.0  # px -> output units: scale / dt * 1000, defaults 1 and 1
+
+def warm_up(piv, folder: str) -> float:
+    """One engine call on the first batch (cuFFT plans, the caching
+    allocator); returns its valid share."""
+    from torchpiv_tpu_torch.io.dataset import PIVDataset
+
+    _, a, b = PIVDataset(folder, ".bmp").read_batch(list(range(BATCH)))
+    _, _, inval = piv.engine(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda())
+    return 1.0 - inval.float().mean().item()
+
+
+def check_fields(fields, piv, n_pairs: int) -> None:
+    check(len(fields) == n_pairs, f"{len(fields)} of {n_pairs} pairs came out")
     shape = piv.engine.final_field_shape
-    for x, y, u, v in fields:
+    for _, _, u, v in fields:
         check(u.shape == v.shape == shape, f"field shape {u.shape}")
         check(np.isfinite(u).all() and np.isfinite(v).all(), "non-finite field")
-        mu = u[2:-2, 2:-2].mean() / unit
-        mv = -v[2:-2, 2:-2].mean() / unit  # the y axis is flipped
+
+
+UNIT = 1000.0  # px -> output units: scale / dt * 1000, defaults 1 and 1
+
+
+def phase_main_path(folder: str, kernels):
+    """OfflinePIV at 4 MP, w64/o32, 2-pass CWS; returns the launch counts
+    and pairs/s."""
+    from torchpiv_tpu_torch import OfflinePIV
+
+    piv = OfflinePIV(folder, wind_size=64, overlap=32, multipass=2,
+                     multipass_mode="CWS", batch_size=BATCH)
+    valid = warm_up(piv, folder)
+    log(f"CWS path: valid share {valid:.4f} over the first {BATCH} pairs")
+    check(valid > 0.95, f"valid share {valid}")
+
+    fields, launches, pairs_per_s = drive(piv, kernels)
+    log(f"CWS path: {len(fields)} pairs at {pairs_per_s:.3f} pairs/s, "
+        f"launches {launches}")
+    check_fields(fields, piv, N_PAIRS)
+    n_batches = -(-N_PAIRS // BATCH)
+    check(launches == {"shift_windows": 2 * n_batches, "shift_windows_bicubic": 0,
+                       "def_windows": 0, "peakfit": 0}, f"launches {launches}")
+    for _, _, u, v in fields:
+        mu = u[2:-2, 2:-2].mean() / UNIT
+        mv = -v[2:-2, 2:-2].mean() / UNIT  # the y axis is flipped
         check(abs(mu - DISPLACEMENT[0]) < 0.05, f"mean u {mu}")
         check(abs(mv - DISPLACEMENT[1]) < 0.05, f"mean v {mv}")
-    log(f"main path: interior mean displacement of the last pair "
+    log(f"CWS path: interior mean displacement of the last pair "
         f"({mu:.4f}, {mv:.4f}) px, expected {DISPLACEMENT}")
-    return launches, len(fields) / elapsed
+    return launches, pairs_per_s
 
 
-def phase_profile(folder: str) -> float:
+def phase_def_path(folder: str, kernels):
+    """OfflinePIV at 4 MP, w64/o32, 2-pass DEF on sheared pairs with the fused
+    peak fit; returns the launch counts and pairs/s.  The same run with the
+    torch-op peak fit follows, for its pairs/s only."""
+    from torchpiv_tpu_torch import OfflinePIV
+
+    kw = dict(wind_size=64, overlap=32, multipass=2, multipass_mode="DEF",
+              batch_size=BATCH)
+    piv = OfflinePIV(folder, engine_options={"peakfit": "pallas"}, **kw)
+    valid = warm_up(piv, folder)
+    log(f"DEF path: valid share {valid:.4f} over the first {BATCH} pairs")
+    check(valid > 0.95, f"valid share {valid}")
+
+    fields, launches, pairs_per_s = drive(piv, kernels)
+    log(f"DEF path (peakfit=pallas): {len(fields)} pairs at "
+        f"{pairs_per_s:.3f} pairs/s, launches {launches}")
+    check_fields(fields, piv, N_SHEAR_PAIRS)
+    n_batches = -(-N_SHEAR_PAIRS // BATCH)
+    check(launches == {"shift_windows": 0, "shift_windows_bicubic": 0,
+                       "def_windows": 2 * n_batches, "peakfit": 2 * n_batches},
+          f"launches {launches}")
+    _, y = piv.engine.final_coordinates
+    want = SHEAR[0] + SHEAR[1] * y[2:-2, 2:-2]
+    for _, _, u, v in fields:
+        # the pipeline flips the fields to the physical y axis
+        got = np.flip(u, axis=0)[2:-2, 2:-2] / UNIT
+        mae = np.abs(got - want).mean()
+        mv = v[2:-2, 2:-2].mean() / UNIT
+        check(mae < 0.1, f"shear: mean |u - (1 + 0.004 y)| = {mae}")
+        check(abs(mv) < 0.05, f"shear: mean v {mv}")
+    log(f"DEF path: last pair mean |u - ({SHEAR[0]} + {SHEAR[1]} y)| = {mae:.4f} px "
+        f"over u in [{want.min():.2f}, {want.max():.2f}] px, mean v {mv:.4f} px")
+
+    xla = OfflinePIV(folder, engine_options={"peakfit": "xla"}, **kw)
+    warm_up(xla, folder)
+    xfields, xlaunches, xla_pairs_per_s = drive(xla, kernels)
+    check_fields(xfields, xla, N_SHEAR_PAIRS)
+    check(xlaunches["peakfit"] == 0 and xlaunches["def_windows"] == 2 * n_batches,
+          f"launches {xlaunches}")
+    worst = max(np.abs(a[2] - b[2]).max() for a, b in zip(fields, xfields)) / UNIT
+    log(f"DEF path: {pairs_per_s:.3f} pairs/s with peakfit=pallas, "
+        f"{xla_pairs_per_s:.3f} with peakfit=xla (one drained run each); "
+        f"largest |u| difference between the two {worst:.2e} px")
+    check(worst < 1e-3, f"the two peak fits differ by {worst} px")
+    return launches, pairs_per_s
+
+
+def phase_bicubic_paths(folder: str, kernels) -> dict:
+    """One batch each of CWS + bicubic and DEF + bicubic through OfflinePIV;
+    returns the CWS + bicubic launch counts."""
+    from torchpiv_tpu_torch import OfflinePIV
+
+    out = {}
+    for mode, expect in (("CWS", "shift_windows_bicubic"), ("DEF", "def_windows")):
+        piv = OfflinePIV(folder, wind_size=64, overlap=32, multipass=2,
+                         multipass_mode=mode, batch_size=BATCH, max_pairs=BATCH,
+                         engine_options={"cws_interp": "bicubic"})
+        fields, launches, _ = drive(piv, kernels)
+        check_fields(fields, piv, BATCH)
+        want = dict.fromkeys(launches, 0)
+        want[expect] = 2
+        check(launches == want, f"{mode} + bicubic launches {launches}")
+        _, y = piv.engine.final_coordinates
+        mae = max(np.abs(np.flip(u, axis=0)[2:-2, 2:-2] / UNIT
+                         - (SHEAR[0] + SHEAR[1] * y[2:-2, 2:-2])).mean()
+                  for _, _, u, _ in fields)
+        log(f"{mode} + bicubic: one batch, launches {launches}, "
+            f"worst mean |u - shear| {mae:.4f} px")
+        check(mae < 0.1, f"{mode} + bicubic shear error {mae}")
+        out[mode] = launches
+    return out["CWS"]
+
+
+def phase_profile(folder: str, label: str, **cfg_kw) -> float:
     """Engine time per batch (CUDA events) and device time by kernel
-    (``torch.profiler``) for one main-path batch; returns ms per pair."""
+    (``torch.profiler``) for one batch of ``folder``; returns ms per pair."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -241,10 +593,10 @@ def phase_profile(folder: str) -> float:
     _, a, b = PIVDataset(folder, ".bmp").read_batch(list(range(BATCH)))
     a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
     engine = MultipassPIV(PIVConfig(frame_shape=FRAME, wind_size=64, overlap=32,
-                                    multipass=2))
+                                    multipass=2, **cfg_kw))
     ms = cuda_ms(lambda: packed_forward(engine, a, b), reps=5)
-    log(f"engine: {ms:.3f} ms per batch of {BATCH} = {ms / BATCH:.3f} ms/pair "
-        f"(device-resident uint8 frames, host tail excluded)")
+    log(f"engine {label}: {ms:.3f} ms per batch of {BATCH} = {ms / BATCH:.3f} "
+        f"ms/pair (device-resident uint8 frames, host tail excluded)")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         packed_forward(engine, a, b)
         torch.cuda.synchronize()
@@ -252,19 +604,21 @@ def phase_profile(folder: str) -> float:
     # the time of the kernels it launched
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in events)
-    log(f"profile: {total / 1e3:.3f} ms of device time in one batch")
+    log(f"profile {label}: {total / 1e3:.3f} ms of device time in one batch")
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
-        log(f"profile: {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+        log(f"profile {label}: {e.self_device_time_total / 1e3:8.3f} ms  "
+            f"x{e.count:<4d} {e.key[:90]}")
     return ms / BATCH
 
 
-def phase_reference(folder: str) -> None:
+def phase_reference(folder: str, label: str, **cfg_kw) -> None:
     """The CUDA engine against the CPU engine on one full-size pair."""
     from torchpiv_tpu_torch import MultipassPIV, PIVConfig
     from torchpiv_tpu_torch.io.dataset import PIVDataset
 
     fa, fb = PIVDataset(folder, ".bmp")[0]
-    cfg = PIVConfig(frame_shape=FRAME, wind_size=64, overlap=32, multipass=2)
+    cfg = PIVConfig(frame_shape=FRAME, wind_size=64, overlap=32, multipass=2,
+                    **cfg_kw)
     t0 = time.perf_counter()
     cu, cv, ci = (t.cpu().numpy() for t in MultipassPIV(cfg, device="cuda")(
         torch.from_numpy(fa), torch.from_numpy(fb)))
@@ -272,11 +626,13 @@ def phase_reference(folder: str) -> None:
         torch.from_numpy(fa), torch.from_numpy(fb)))
     both = ~(ci | pi)
     flips = float((ci != pi).mean())
-    rms = float(np.sqrt(np.mean(np.concatenate([(cu - pu)[both], (cv - pv)[both]]) ** 2)))
-    log(f"reference: CUDA vs CPU engine: mask mismatch {flips:.5f}, "
-        f"RMS {rms:.3e} px on jointly valid vectors "
-        f"({time.perf_counter() - t0:.1f} s)")
-    check(flips < 0.02 and rms < 0.01, f"mask mismatch {flips}, RMS {rms}")
+    diff = np.abs(np.concatenate([(cu - pu)[both], (cv - pv)[both]]))
+    rms = float(np.sqrt(np.mean(diff ** 2)))
+    log(f"reference {label}: CUDA vs CPU engine: mask mismatch {flips:.5f}, "
+        f"RMS {rms:.3e} px, largest {diff.max():.3e} px, "
+        f"{int((diff > 1e-3).sum())} of {diff.size} components above 1e-3 px, "
+        f"on jointly valid vectors ({time.perf_counter() - t0:.1f} s)")
+    check(flips < 0.02 and rms < 0.01, f"{label}: mask mismatch {flips}, RMS {rms}")
 
 
 def main() -> int:
@@ -284,23 +640,44 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from torchpiv_tpu_torch.kernels import KERNELS
+    from torchpiv_tpu_torch.utils.synthetic import shear_flow
 
     t_start = time.perf_counter()
     smi = phase_environment()
     phase_build()
-    row = phase_kernels()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as folder:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        uniform = os.path.join(tmp, "uniform")
+        shear = os.path.join(tmp, "shear")
         t0 = time.perf_counter()
-        write_pairs(folder)
-        log(f"wrote {N_PAIRS} pairs of {FRAME} in {time.perf_counter() - t0:.1f} s")
-        launches, pairs_per_s = phase_main_path(folder, KERNELS)
-        engine_ms = phase_profile(folder)
-        log(f"main path: engine busy share {engine_ms * pairs_per_s / 1e3:.3f} "
+        write_pairs(uniform, N_PAIRS, DISPLACEMENT, seed=100)
+        write_pairs(shear, N_SHEAR_PAIRS, shear_flow(*SHEAR), seed=200)
+        log(f"wrote {N_PAIRS} + {N_SHEAR_PAIRS} pairs of {FRAME} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rows = phase_kernels(uniform)
+        log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
+        cws_launches, pairs_per_s = phase_main_path(uniform, KERNELS)
+        def_launches, def_pairs_per_s = phase_def_path(shear, KERNELS)
+        bicubic_launches = phase_bicubic_paths(shear, KERNELS)
+        log(f"paths done at {time.perf_counter() - t_start:.1f} s")
+        engine_ms = phase_profile(uniform, "CWS")
+        log(f"CWS path: engine busy share {engine_ms * pairs_per_s / 1e3:.3f} "
             f"(engine ms/pair x pairs/s; the rest is host work the card waits on)")
-        phase_reference(folder)
-    row["launches"] = launches["shift_windows"]
+        xla_ms = phase_profile(shear, "DEF peakfit=xla", multipass_mode="DEF")
+        def_ms = phase_profile(shear, "DEF peakfit=pallas", multipass_mode="DEF",
+                               peakfit="pallas")
+        log(f"DEF path: engine {def_ms:.3f} ms/pair with peakfit=pallas, "
+            f"{xla_ms:.3f} with peakfit=xla; busy share "
+            f"{def_ms * def_pairs_per_s / 1e3:.3f}")
+        phase_reference(uniform, "CWS")
+        phase_reference(shear, "DEF", multipass_mode="DEF", peakfit="pallas")
+    # each kernel's launches on the path that runs it
+    on_path = {"shift_windows": cws_launches, "shift_windows_bicubic": bicubic_launches,
+               "def_windows": def_launches, "peakfit": def_launches}
+    for row in rows:
+        row["launches"] = on_path[row["name"]][row["name"]]
+        check(row["launches"] > 0, f"{row['name']} was not launched on its path")
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

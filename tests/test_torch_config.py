@@ -1,7 +1,9 @@
 """The port's PIVConfig twin and the static engine state against the JAX
 engine: validation, pass schedules, field shapes, coordinates, window
 origins and spline upsample matrices (exact), the JAX-config conversion,
-and a ValueError for every knob that is not ported yet."""
+a ValueError for every knob that is not ported yet, and the size rules of
+the resampling kernels (the JAX engine falls through to its XLA paths
+there, which the port does not have)."""
 import dataclasses
 
 import numpy as np
@@ -25,6 +27,10 @@ SUPPORTED = [
     dict(validate=False),
     dict(edge_exact=False, use_pallas="on"),
     dict(max_shift=8, use_pallas="on"),
+    dict(multipass_mode="DEF"),
+    dict(multipass_mode="DEF", cws_interp="bicubic", def_margin=4),
+    dict(cws_interp="bicubic"),
+    dict(peakfit="pallas"),
 ]
 
 
@@ -75,9 +81,6 @@ def test_fields_and_defaults_match_jax_twin():
 
 
 NOT_PORTED = [
-    dict(multipass_mode="DEF"),
-    dict(cws_interp="bicubic"),
-    dict(peakfit="pallas"),
     dict(fused="split"),
     dict(fused="on"),
     dict(window_weight="gaussian"),
@@ -100,6 +103,53 @@ def test_unported_knobs_raise_naming_the_knob(kw):
         PIVConfig(frame_shape=FRAME, **kw)
     with pytest.raises(ValueError, match=knob):
         from_jax_config(dataclasses.asdict(JaxPIVConfig(frame_shape=FRAME, **kw)))
+
+
+# refine-pass windows beyond the resampling kernels' limits: the JAX engine
+# takes its XLA path there, the port raises naming wind_size
+BEYOND_KERNEL_LIMITS = [
+    # bicubic CWS: pass-2 window 126 > 125
+    dict(wind_size=252, overlap=126, cws_interp="bicubic"),
+    # DEF bilinear: 126 + 2*2 + 1 = 131 > 129
+    dict(wind_size=252, overlap=126, multipass_mode="DEF"),
+    # DEF bicubic: 122 + 2*2 + 4 = 130 > 129
+    dict(wind_size=244, overlap=122, multipass_mode="DEF", cws_interp="bicubic"),
+    # DEF bilinear with a wide margin: 120 + 2*8 + 1 = 137 > 129
+    dict(wind_size=240, overlap=120, multipass_mode="DEF", def_margin=8),
+]
+
+WITHIN_KERNEL_LIMITS = [
+    dict(wind_size=250, overlap=124, cws_interp="bicubic"),  # 125
+    dict(wind_size=256, overlap=128, cws_interp="bicubic", multipass_mode="DWS"),
+    dict(wind_size=248, overlap=124, multipass_mode="DEF"),  # 124 + 5 = 129
+    dict(wind_size=242, overlap=120, multipass_mode="DEF", cws_interp="bicubic"),
+]
+
+
+@pytest.mark.parametrize("kw", BEYOND_KERNEL_LIMITS)
+def test_windows_beyond_the_kernel_limits_raise(kw):
+    big = dict(frame_shape=(512, 512), multipass=2, **kw)
+    JaxPIVConfig(**big)  # valid for the JAX engine (XLA fallback)
+    with pytest.raises(ValueError, match="wind_size"):
+        PIVConfig(**big)
+    PIVConfig(**dict(big, multipass=1))  # pass 1 extracts, it does not shift
+
+
+@pytest.mark.parametrize("kw", WITHIN_KERNEL_LIMITS)
+def test_windows_at_the_kernel_limits_pass(kw):
+    cfg = PIVConfig(frame_shape=(512, 512), multipass=2, **kw)
+    assert cfg.pass_schedule()[1][0] == kw["wind_size"] // 2
+
+
+@pytest.mark.parametrize("kw", [
+    dict(peakfit="pallas", second_peak_fallback=True),
+    dict(peakfit="pallas", subpixel="gauss2d"),
+])
+def test_peakfit_kernel_combinations_raise_like_jax(kw):
+    with pytest.raises(ValueError):
+        JaxPIVConfig(frame_shape=FRAME, **kw)
+    with pytest.raises(ValueError):
+        PIVConfig(frame_shape=FRAME, **kw)
 
 
 @pytest.mark.parametrize("kw", [

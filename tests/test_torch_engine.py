@@ -1,6 +1,6 @@
 """The port's MultipassPIV on the CPU against the JAX engine running the
-interpreted Pallas shift kernel (the semantics the TPU main path runs), and
-against the float64 golden mirror.  Budget (the port's parity budget): less
+interpreted Pallas kernels (shift, bicubic shift, deformation, peak fit: the
+semantics the TPU paths run), and against the float64 golden mirror.  Budget (the port's parity budget): less
 than 2% validation-mask mismatch and RMS < 0.01 px on jointly valid
 vectors."""
 import jax.numpy as jnp
@@ -12,9 +12,10 @@ import golden
 from torchpiv_tpu.models import MultipassPIV as JaxMultipassPIV
 from torchpiv_tpu.models import PIVConfig as JaxPIVConfig
 from torchpiv_tpu.utils.synthetic import particle_pair as jax_particle_pair
+from torchpiv_tpu.utils.synthetic import shear_flow as jax_shear_flow
 from torchpiv_tpu_torch import MultipassPIV, PIVConfig
 from torchpiv_tpu_torch.utils.device import check_no_tf32
-from torchpiv_tpu_torch.utils.synthetic import particle_pair
+from torchpiv_tpu_torch.utils.synthetic import particle_pair, shear_flow
 
 SHAPE = (256, 256)
 
@@ -51,6 +52,58 @@ def test_engine_matches_jax_engine_with_pallas_shift(mode):
     _assert_parity(u, v, inval, ju, jv, ji)
 
 
+NEW_PATHS = [
+    dict(multipass_mode="DEF"),
+    dict(multipass_mode="DEF", cws_interp="bicubic"),
+    dict(multipass_mode="CWS", cws_interp="bicubic"),
+    dict(multipass_mode="CWS", peakfit="pallas"),
+    dict(multipass_mode="DEF", peakfit="pallas", def_margin=4),
+]
+
+
+@pytest.mark.parametrize("flow", ["uniform", "shear"])
+@pytest.mark.parametrize("extra", NEW_PATHS, ids=lambda kw: "-".join(map(str, kw.values())))
+def test_engine_new_paths_match_jax_engine(extra, flow):
+    disp = (3.3, -2.1) if flow == "uniform" else shear_flow(1.0, 0.03)
+    fa, fb = particle_pair(SHAPE, disp, seed=7)
+    kw = dict(frame_shape=SHAPE, wind_size=64, overlap=32, multipass=2, **extra)
+    ju, jv, ji = (np.asarray(a) for a in JaxMultipassPIV(
+        JaxPIVConfig(**kw, use_pallas="off", pallas_interpret=True))(
+            jnp.asarray(fa), jnp.asarray(fb)))
+    u, v, inval = _run_port(kw, fa, fb)
+    assert u.shape == ju.shape == (15, 15)
+    _assert_parity(u, v, inval, ju, jv, ji)
+
+
+def test_def_beats_cws_on_shear():
+    """Window deformation removes the gradient bias of pure translation:
+    DEF's shear RMS stays below 0.75 of CWS's (the JAX package pins the same
+    claim for its engine)."""
+    shape, du_dy = (512, 512), 0.03
+    fa, fb = particle_pair(shape, shear_flow(1.0, du_dy), density=0.04, seed=400)
+    rms = {}
+    for mode in ("CWS", "DEF"):
+        eng = MultipassPIV(PIVConfig(frame_shape=shape, wind_size=64, overlap=32,
+                                     multipass=2, multipass_mode=mode), device="cpu")
+        u, _, inval = (t.numpy() for t in eng(torch.from_numpy(fa), torch.from_numpy(fb)))
+        _, y = eng.final_coordinates
+        sel = ~inval
+        sel[:3] = sel[-3:] = False
+        sel[:, :3] = sel[:, -3:] = False
+        rms[mode] = float(np.sqrt(np.mean((u[sel] - (1.0 + du_dy * y[sel])) ** 2)))
+    assert rms["DEF"] < 0.045, rms
+    assert rms["DEF"] < 0.75 * rms["CWS"], rms
+
+
+def test_gradient_is_the_jax_gradient():
+    from torchpiv_tpu_torch.models.multipass import _gradient
+
+    f = np.random.default_rng(5).normal(size=(2, 7, 9)).astype(np.float32)
+    for dim, axis in ((-2, 1), (-1, 2)):
+        want = np.asarray(jnp.gradient(jnp.asarray(f), 16.0, axis=axis))
+        np.testing.assert_array_equal(_gradient(torch.from_numpy(f), 16.0, dim).numpy(), want)
+
+
 @pytest.mark.parametrize("multipass,mode", [(1, "CWS"), (2, "CWS"), (2, "DWS"), (3, "CWS")])
 def test_engine_matches_golden(multipass, mode):
     fa, fb = particle_pair(SHAPE, (3.3, -2.1), seed=7)
@@ -67,6 +120,9 @@ def test_engine_matches_golden(multipass, mode):
 def test_synthetic_pair_is_the_jax_copy():
     for a, b in zip(particle_pair((64, 80), (1.5, -0.5), seed=3),
                     jax_particle_pair((64, 80), (1.5, -0.5), seed=3)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(particle_pair((64, 80), shear_flow(1.0, 0.02), seed=3),
+                    jax_particle_pair((64, 80), jax_shear_flow(1.0, 0.02), seed=3)):
         np.testing.assert_array_equal(a, b)
 
 

@@ -1,19 +1,22 @@
 """The port's torch ops against the JAX package's on the same numpy inputs:
 window extraction (exact), FFT correlation (1e-4 of the map maximum: the
 two FFT libraries sum in different orders), the gauss3 peak fit with
-peak-ratio validation (u, v within 1e-5 px, invalid mask exact) and the
-host infill (exact)."""
+peak-ratio validation (u, v within 1e-5 px, invalid mask exact), also
+against the fused TPU peak-fit kernel in interpret mode, which the port's
+CUDA peak-fit kernel replaces, and the host infill (exact)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from torchpiv_tpu.experimental.peakfit_pallas import correlation_to_displacement_pallas
 from torchpiv_tpu.ops import correlate as jcorr
 from torchpiv_tpu.ops import infill as jinfill
 from torchpiv_tpu.ops import peakfit as jpeak
 from torchpiv_tpu.ops import windows as jwin
 from torchpiv_tpu_torch.ops.correlate import correlate_fft, min_subtract
 from torchpiv_tpu_torch.ops.infill import fill_missing_values, interpolate_borders
+from torchpiv_tpu_torch.kernels.peakfit import peakfit
 from torchpiv_tpu_torch.ops.peakfit import correlation_to_displacement
 from torchpiv_tpu_torch.ops.windows import extract_windows
 
@@ -98,6 +101,54 @@ def test_peakfit_exclusion_window_matches_jax(window):
     _, _, ti = correlation_to_displacement(torch.from_numpy(maps), True, 1.1, window)
     _, _, ji = jpeak.correlation_to_displacement(jnp.asarray(maps), True, 1.1, window)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("min_sub", [False, True])
+@pytest.mark.parametrize("validate", [False, True])
+@pytest.mark.parametrize("d", [16, 32])
+def test_peakfit_matches_pallas_kernel(d, min_sub, validate):
+    """The plain version of the CUDA peak-fit kernel (reached through the
+    kernel's wrapper on CPU tensors) against the TPU kernel it replaces.
+
+    With ``min_subtract`` the TPU kernel computes ``(x - min) + EPS`` and the
+    XLA fit, whose twin the plain version is, ``x + (EPS - min)``, which
+    loses EPS once ``|min| >= 2``.  The two differ only for a sample within
+    about 2 of the map minimum, so every map here gets one pedestal pixel
+    below all others, away from the peaks, and no sample that the fit reads
+    is the minimum."""
+    maps = _maps(d)
+    if min_sub:
+        maps[:, d // 2 + 3, d // 2 + 4] = maps.min(axis=(1, 2)) - 1.0
+        maps = maps * 40.0 - 7.0
+    before = peakfit.launches
+    tu, tv, ti = peakfit(torch.from_numpy(maps), validate, 1.2, 3, min_subtract=min_sub)
+    assert peakfit.launches == before  # no kernel on the CPU
+    ju, jv, ji = correlation_to_displacement_pallas(
+        jnp.asarray(maps), validate, 1.2, 3, interpret=True, min_subtract=min_sub)
+    np.testing.assert_allclose(tu.numpy(), np.asarray(ju), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=0, atol=1e-5)
+    if validate:
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        assert ti.any() and not ti.all()
+    else:
+        assert ti is None and ji is None
+
+
+@pytest.mark.parametrize("window", [1, 3, 5])
+def test_peakfit_exclusion_window_matches_pallas_kernel(window):
+    maps = _maps(d=32)
+    _, _, ti = peakfit(torch.from_numpy(maps), True, 1.1, window)
+    _, _, ji = correlation_to_displacement_pallas(
+        jnp.asarray(maps), True, 1.1, window, interpret=True)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("bad", [
+    torch.zeros(3, 16, 24), torch.zeros(16, 16), torch.zeros(2, 16, 16).double(),
+    torch.zeros(1, 256, 256)])
+def test_peakfit_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    with pytest.raises(ValueError):
+        peakfit(bad)
 
 
 def _holey_field(seed, frac=0.2, shape=(12, 15)):

@@ -4,8 +4,9 @@ CUDA kernel's wrapper and the kernel's argument checks.  The kernel itself
 is held against its plain version on a card in ``test_torch_cuda.py``.
 
 Tolerances: integer shifts are copies and must match bit for bit;
-fractional shifts may differ by 1e-4 of a grey level, because XLA's CPU
-backend may contract the blend's multiply-adds."""
+fractional bilinear shifts may differ by 1e-4 of a grey level and bicubic
+ones by 1e-3, because XLA's CPU backend may contract the multiply-adds of
+the blend and of the cubic weights."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +15,7 @@ import torch
 from torchpiv_tpu.kernels.shift_pallas import flat_wrap_pad as jax_flat_wrap_pad
 from torchpiv_tpu.kernels.shift_pallas import shift_windows_pallas
 from torchpiv_tpu_torch.kernels import KERNELS, _build
-from torchpiv_tpu_torch.kernels.shift import shift_windows
+from torchpiv_tpu_torch.kernels.shift import shift_windows, shift_windows_bicubic
 from torchpiv_tpu_torch.ops.shifts import flat_wrap_pad, shift_windows_reference
 
 
@@ -59,6 +60,38 @@ def test_plain_version_matches_pallas_kernel(shape, w, o, kind):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("kind", ["integer", "fractional", "mixed"])
+@pytest.mark.parametrize("shape,w,o", [((64, 96), 16, 8), ((128, 128), 32, 16)])
+def test_plain_bicubic_version_matches_pallas_kernel(shape, w, o, kind):
+    frame, vx, vy = _case(shape, w, o, kind, seed=w + 1)
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o, interp="bicubic")
+    want = np.asarray(shift_windows_pallas(
+        jnp.asarray(frame), jnp.asarray(vx), jnp.asarray(vy), interpret=True, **kw))
+    got = shift_windows_reference(
+        torch.from_numpy(frame), torch.from_numpy(vx), torch.from_numpy(vy), **kw).numpy()
+    assert got.shape == want.shape
+    if kind == "integer":  # weights (0, 1, 0, 0): the integer copy
+        np.testing.assert_array_equal(got, want)
+        bilinear = shift_windows_reference(
+            torch.from_numpy(frame), torch.from_numpy(vx), torch.from_numpy(vy),
+            **dict(kw, interp="bilinear")).numpy()
+        np.testing.assert_array_equal(got, bilinear)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("kw", [dict(flat_wrap=False), dict(max_shift=5)])
+def test_plain_bicubic_version_options_match_pallas_kernel(kw):
+    shape, w, o = (64, 96), 16, 8
+    frame, vx, vy = _case(shape, w, o, "fractional", seed=5)
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o, interp="bicubic", **kw)
+    want = np.asarray(shift_windows_pallas(
+        jnp.asarray(frame), jnp.asarray(vx), jnp.asarray(vy), interpret=True, **kw))
+    got = shift_windows_reference(
+        torch.from_numpy(frame), torch.from_numpy(vx), torch.from_numpy(vy), **kw).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
 @pytest.mark.parametrize("kw", [dict(flat_wrap=False), dict(max_shift=5)])
 def test_plain_version_options_match_pallas_kernel(kw):
     shape, w, o = (64, 96), 16, 8
@@ -88,8 +121,21 @@ def test_wrapper_takes_plain_version_on_cpu():
         assert torch.equal(single, shift_windows_reference(frames[b], vx[b], vy[b], **kw))
 
 
+def test_bicubic_wrapper_takes_plain_version_on_cpu():
+    shape, w, o = (64, 96), 16, 8
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o)
+    frame, vx, vy = (torch.from_numpy(a) for a in _case(shape, w, o, "fractional", 4))
+    before = shift_windows_bicubic.launches, shift_windows.launches
+    got = shift_windows_bicubic(frame, vx, vy, **kw)
+    assert (shift_windows_bicubic.launches, shift_windows.launches) == before
+    assert torch.equal(got, shift_windows(frame, vx, vy, interp="bicubic", **kw))
+    assert torch.equal(got, shift_windows_reference(frame, vx, vy, interp="bicubic", **kw))
+    assert not torch.equal(got, shift_windows(frame, vx, vy, **kw))
+
+
 @pytest.mark.parametrize("bad", [
-    dict(wind_size=130, overlap=2), dict(out_dtype=torch.bfloat16)])
+    dict(wind_size=130, overlap=2), dict(out_dtype=torch.bfloat16),
+    dict(wind_size=126, overlap=2, interp="bicubic"), dict(interp="lanczos")])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     kw = dict(frame_shape=(256, 256), wind_size=32, overlap=16)
     kw.update(bad)
@@ -105,7 +151,10 @@ def test_wrapper_rejects_wrong_map_shape():
 
 
 def test_kernel_sources_are_in_the_package():
-    assert _build.sources() == ["shift_windows"]
-    assert [k.__name__ for k in KERNELS] == ["shift_windows"]
-    target = _build._target("shift_windows")
-    assert target.parent == _build.BUILD_DIR and target.suffix == ".so"
+    names = ["def_windows", "peakfit", "shift_windows", "shift_windows_bicubic"]
+    assert _build.sources() == names
+    assert sorted(k.__name__ for k in KERNELS) == names
+    assert all(isinstance(k.launches, int) for k in KERNELS)
+    for name in names:
+        target = _build._target(name)
+        assert target.parent == _build.BUILD_DIR and target.suffix == ".so"

@@ -8,7 +8,12 @@ Knobs whose only effect is a TPU lowering are accepted and do nothing here:
 ``use_pallas``, ``pallas_interpret``, ``shift_variant``, ``shift_maps``,
 ``extract_variant``, ``complex_mm``, ``correlator`` and ``dft_precision``.
 The port always correlates in float32 through ``torch.fft`` and always
-shifts windows with its CUDA kernel (its plain version on the CPU).
+resamples windows with its CUDA kernels (their plain versions on the CPU):
+the JAX engine's XLA shift and dense-gather DEF paths, which have other
+semantics (per-pixel absolute coordinates, no residual saturation), are not
+ported, so window sizes beyond the kernels' limits raise ``ValueError``.
+``peakfit="pallas"`` selects the fused CUDA peak-fit kernel; ``"xla"`` (the
+default) the chain of torch ops.
 
 Knobs that the port does not implement yet raise ``ValueError`` naming the
 knob (``NOT_PORTED``).
@@ -18,13 +23,18 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Tuple
 
-MAX_SHIFT_WIND = 128  # refine-pass window limit of the shift kernel
+MAX_SHIFT_WIND = 128  # refine-pass window limit of the bilinear shift kernel
+MAX_BICUBIC_WIND = 125  # ... of the bicubic shift kernel
+MAX_DEF_TILE = 129  # DEF: w + 2*def_margin + (4 bicubic | 1 bilinear) limit
+
+
+def def_tile(wind_size: int, margin: int, interp: str) -> int:
+    """Side of the frame tile one DEF window samples from."""
+    return wind_size + 2 * margin + (4 if interp == "bicubic" else 1)
+
 
 # knob -> predicate on its value that is true when the value is not ported
 NOT_PORTED = {
-    "multipass_mode": lambda v: v == "DEF",
-    "cws_interp": lambda v: v == "bicubic",
-    "peakfit": lambda v: v == "pallas",
     "fused": lambda v: v in ("split", "on"),
     "window_weight": lambda v: v is not None,
     "correlation": lambda v: v == "rpc",
@@ -48,7 +58,7 @@ class PIVConfig:
     wind_size: int = 64
     overlap: int = 32
     multipass: int = 1
-    multipass_mode: str = "CWS"  # "CWS" | "DWS" ("DEF" not ported)
+    multipass_mode: str = "CWS"  # "CWS" | "DWS" | "DEF"
     multipass_scale: float = 2.0
     validate: bool = True
     val_ratio: float = 1.2
@@ -62,7 +72,7 @@ class PIVConfig:
     shift_variant: str = "rolls"  # TPU lowering only: no effect
     shift_maps: str = "rows"  # TPU lowering only: no effect
     correlator: str = "auto"  # TPU lowering only: always f32 torch.fft
-    peakfit: str = "xla"  # "xla" ("pallas" not ported)
+    peakfit: str = "xla"  # "xla" (torch ops) | "pallas" (fused kernel)
     subpixel: str = "gauss3"  # "gauss3" ("gauss2d" not ported)
     dft_precision: str = "high"  # TPU lowering only: always f32 torch.fft
     complex_mm: str = "real"  # TPU lowering only: no effect
@@ -72,7 +82,7 @@ class PIVConfig:
     u_limits: Optional[Tuple[float, float]] = None  # not ported
     v_limits: Optional[Tuple[float, float]] = None  # not ported
     global_std: Optional[float] = None  # not ported
-    cws_interp: str = "bilinear"  # "bilinear" ("bicubic" not ported)
+    cws_interp: str = "bilinear"  # "bilinear" | "bicubic" (CWS and DEF)
     def_margin: int = 2  # DEF only
     window_weight: Optional[str] = None  # not ported
     correlation: str = "scc"  # "scc" ("rpc" not ported)
@@ -184,8 +194,22 @@ class PIVConfig:
             if unported(value):
                 raise ValueError(
                     f"{knob}={value!r} is not ported to the PyTorch engine yet")
+        # refine-pass windows beyond the resampling kernels' limits
+        bicubic = self.cws_interp == "bicubic"
         for p, (w, _) in enumerate(self.pass_schedule()[1:], start=2):
-            if w > MAX_SHIFT_WIND:
+            if self.multipass_mode == "DEF":
+                T = def_tile(w, self.def_margin, self.cws_interp)
+                if T > MAX_DEF_TILE:
+                    raise ValueError(
+                        f"wind_size: pass {p} DEF window {w} with def_margin="
+                        f"{self.def_margin}, cws_interp={self.cws_interp!r} "
+                        f"samples a {T} px tile > {MAX_DEF_TILE}; it needs "
+                        f"the XLA DEF path, which is not ported")
+                continue
+            limit = (MAX_BICUBIC_WIND
+                     if bicubic and self.multipass_mode == "CWS"
+                     else MAX_SHIFT_WIND)
+            if w > limit:
                 raise ValueError(
-                    f"wind_size: pass {p} window {w} > {MAX_SHIFT_WIND} px "
+                    f"wind_size: pass {p} window {w} > {limit} px "
                     f"needs the XLA shift path, which is not ported")

@@ -15,7 +15,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -94,3 +94,22 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _loaded[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence):
+    """The C function ``symbol`` of ``csrc/<name>.cu`` (it returns the
+    launch's ``cudaGetLastError()``), with its argument types set."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+    return fn
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise if the launch of ``csrc/<name>.cu`` returned a CUDA error."""
+    if rc != 0:
+        err = getattr(load(name), f"{name}_error_string")
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{name} launch failed: {err(rc).decode()} ({rc})")

@@ -1,9 +1,12 @@
-"""Wrapper of the hand-written CUDA window-shift kernel
-(``csrc/shift_windows.cu``), the port of ``shift_windows_pallas``.
+"""Wrapper of the hand-written CUDA window-shift kernels
+(``csrc/shift_windows.cu`` and ``csrc/shift_windows_bicubic.cu``), the port
+of ``shift_windows_pallas``.
 
 For CPU tensors it runs the plain PyTorch version
-(``ops.shifts.blend_reference``); for CUDA tensors it launches the kernel on
-the current stream or raises.  ``shift_windows.launches`` counts launches.
+(``ops.shifts.blend_reference`` or ``blend_reference_bicubic``); for CUDA
+tensors it launches the kernel on the current stream or raises.
+``shift_windows.launches`` counts launches of the bilinear kernel and
+``shift_windows_bicubic.launches`` those of the bicubic one.
 """
 from __future__ import annotations
 
@@ -12,40 +15,37 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.shifts import ShiftOperands, blend_reference, shift_operands
+from ..config import MAX_BICUBIC_WIND, MAX_SHIFT_WIND
+from ..ops.shifts import (ShiftOperands, blend_reference,
+                          blend_reference_bicubic, shift_operands)
 from . import _build
 
-MAX_WIND = 128  # (w+1)^2 f32 tile = 66 KB of shared memory at w = 128
+# the limits of the TPU kernels, kept so that both engines take the same
+# configurations; (w+1)^2 f32 = 66 KB of shared memory at w = 128
+MAX_WIND = {"bilinear": MAX_SHIFT_WIND, "bicubic": MAX_BICUBIC_WIND}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("shift_windows")
-    fn = lib.shift_windows_f32
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        lib.shift_windows_error_string.restype = ctypes.c_char_p
-        lib.shift_windows_error_string.argtypes = [ctypes.c_int]
-    return lib
-
-
-def launch(ops: ShiftOperands, wind_size: int) -> torch.Tensor:
+def launch(ops: ShiftOperands, wind_size: int,
+           interp: str = "bilinear") -> torch.Tensor:
     """Launch the kernel on CUDA ``ShiftOperands`` -> ``[B, N, w, w]``."""
+    name = "shift_windows_bicubic" if interp == "bicubic" else "shift_windows"
     B, Hp, Wp = ops.frame.shape
     dev = ops.frame.device
     out = torch.empty((B, ops.n_rows * ops.n_cols, wind_size, wind_size),
                       dtype=torch.float32, device=dev)
-    lib = _lib()
+    fn = _build.function(
+        name, f"{name}_f32",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     with torch.cuda.device(dev):
-        rc = lib.shift_windows_f32(
-            ops.frame.data_ptr(), ops.dy.data_ptr(), ops.dx.data_ptr(),
-            ops.fy.data_ptr(), ops.fx.data_ptr(), out.data_ptr(),
-            B, Hp, Wp, ops.n_rows, ops.n_cols, wind_size, ops.step, ops.off,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        msg = lib.shift_windows_error_string(rc).decode()
-        raise RuntimeError(f"shift_windows launch failed: {msg} ({rc})")
-    shift_windows.launches += 1
+        rc = fn(ops.frame.data_ptr(), ops.dy.data_ptr(), ops.dx.data_ptr(),
+                ops.fy.data_ptr(), ops.fx.data_ptr(), out.data_ptr(),
+                B, Hp, Wp, ops.n_rows, ops.n_cols, wind_size, ops.step, ops.off,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(name, rc)
+    if interp == "bicubic":
+        shift_windows_bicubic.launches += 1
+    else:
+        shift_windows.launches += 1
     return out
 
 
@@ -59,13 +59,18 @@ def shift_windows(
     overlap: int,
     max_shift: Optional[int] = None,
     flat_wrap: bool = True,
+    interp: str = "bilinear",
     out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Per-window shifted windows ``[B, N, w, w]`` float32 from ``[B, H, W]``
     frames and ``[B, N]`` shifts in pixels (``[N, w, w]`` from ``[H, W]`` and
-    ``[N]``); integer-valued shifts give the DWS integer tile copy."""
-    if wind_size > MAX_WIND:
-        raise ValueError(f"shift_windows: wind_size={wind_size} > {MAX_WIND}")
+    ``[N]``); integer-valued shifts give the DWS integer tile copy.
+    ``interp`` is ``"bilinear"`` or ``"bicubic"`` (Keys, a = -0.5)."""
+    if interp not in MAX_WIND:
+        raise ValueError(f"unknown interp {interp!r}")
+    if wind_size > MAX_WIND[interp]:
+        raise ValueError(f"shift_windows: wind_size={wind_size} > "
+                         f"{MAX_WIND[interp]} ({interp})")
     if out_dtype != torch.float32:
         raise ValueError(f"shift_windows stores float32 only, not {out_dtype}")
     if frame.device.type not in ("cpu", "cuda"):
@@ -77,12 +82,20 @@ def shift_windows(
         raise ValueError("frame and shift maps must be on one device")
     ops = shift_operands(frame, vel_x, vel_y, frame_shape=frame_shape,
                          wind_size=wind_size, overlap=overlap,
-                         max_shift=max_shift, flat_wrap=flat_wrap)
+                         max_shift=max_shift, flat_wrap=flat_wrap, interp=interp)
     if frame.device.type == "cpu":
-        out = blend_reference(ops, wind_size)
+        blend = blend_reference_bicubic if interp == "bicubic" else blend_reference
+        out = blend(ops, wind_size)
     else:
-        out = launch(ops, wind_size)
+        out = launch(ops, wind_size, interp)
     return out if batched else out[0]
 
 
+def shift_windows_bicubic(frame, vel_x, vel_y, **kw) -> torch.Tensor:
+    """``shift_windows`` with ``interp="bicubic"``: the bicubic kernel under
+    its own name and launch count."""
+    return shift_windows(frame, vel_x, vel_y, interp="bicubic", **kw)
+
+
 shift_windows.launches = 0
+shift_windows_bicubic.launches = 0

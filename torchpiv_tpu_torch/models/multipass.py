@@ -4,19 +4,27 @@
 ``MultipassPIV`` maps ``[B, H, W]`` frame pairs to final-pass
 ``(u, v, invalid)`` fields ``[B, n_rows, n_cols]``: a first pass (window
 extraction, DC-folded FFT correlation, gauss3 peak fit with peak-ratio
-validation), then N-1 CWS/DWS refinement passes (spline predictor upsample,
-window shift through the hand-written CUDA kernel, correlation, peak fit,
-anti-divergence guards).  The leading pair axis replaces the JAX package's
-``vmap``/``lax.scan``.
+validation), then N-1 CWS/DWS/DEF refinement passes (spline predictor
+upsample, window shift or deformation through the hand-written CUDA
+kernels, correlation, peak fit, anti-divergence guards).  The leading pair
+axis replaces the JAX package's ``vmap``/``lax.scan``.
 
 Pass semantics are the JAX engine's:
 
 * CWS: the half-shift comes from the predictor BEFORE validation zeroing,
-  symmetric -+u/2 bilinear shifts, total ``u = 2*(u0/2) + du``;
+  symmetric -+u/2 bilinear (or, with ``cws_interp="bicubic"``, Keys bicubic)
+  shifts, total ``u = 2*(u0/2) + du``;
+* DEF: the CWS half-shift plus its gradients on the pass grid (central
+  differences, one-sided at the edges, spacing ``step``); every window is
+  resampled per pixel with ``-(shift + gradient * offset)`` in frame A and
+  ``+`` in frame B, in ``cws_interp``;
 * DWS: the predictor is zeroed BEFORE halving and rounding (half to even),
   integer shifts, total ``u = 2*rint(u0/2) + du``;
 * guard: revert to the zeroed predictor where ``du > u0 and rint(u0) > 0``
   or where the window failed validation.
+
+``peakfit="pallas"`` runs the fused peak-fit kernel instead of the chain of
+torch ops (``"xla"``, the default); both give the same fields.
 
 The static operators (spline upsample matrices ``Ay``/``Ax`` between pass
 grids, per-pass window origins) are registered buffers.  The predictor
@@ -32,6 +40,8 @@ import torch
 from torch import nn
 
 from ..config import PIVConfig
+from ..kernels.deform import def_windows
+from ..kernels.peakfit import peakfit
 from ..kernels.shift import shift_windows
 from ..ops.correlate import correlate_fft
 from ..ops.geometry import get_coordinates, get_field_shape, per_window_origins
@@ -39,6 +49,17 @@ from ..ops.peakfit import correlation_to_displacement
 from ..ops.spline import upsample_matrices
 from ..ops.windows import extract_windows
 from ..utils.device import check_no_tf32, resolve_device
+
+
+def _gradient(f: torch.Tensor, h: float, dim: int) -> torch.Tensor:
+    """``jnp.gradient`` along ``dim`` with spacing ``h``, in its arithmetic:
+    ``(f[i+1] - f[i-1]) * 0.5 / h`` inside, one-sided differences ``/ h`` at
+    the two ends."""
+    n = f.shape[dim]
+    first = (f.narrow(dim, 1, 1) - f.narrow(dim, 0, 1)) / h
+    last = (f.narrow(dim, n - 1, 1) - f.narrow(dim, n - 2, 1)) / h
+    inner = (f.narrow(dim, 2, n - 2) - f.narrow(dim, 0, n - 2)) * 0.5 / h
+    return torch.cat([first, inner, last], dim=dim)
 
 
 class MultipassPIV(nn.Module):
@@ -91,9 +112,9 @@ class MultipassPIV(nn.Module):
 
     def _peakfit(self, corr, validate):
         cfg = self.config
-        return correlation_to_displacement(
-            corr.reshape(-1, *corr.shape[-2:]), validate, cfg.val_ratio,
-            cfg.validation_window, min_subtract=True)
+        fit = peakfit if cfg.peakfit == "pallas" else correlation_to_displacement
+        return fit(corr.reshape(-1, *corr.shape[-2:]), validate, cfg.val_ratio,
+                   cfg.validation_window, min_subtract=True)
 
     def first_pass(self, frame_a: torch.Tensor, frame_b: torch.Tensor):
         """Zero-order pass on float32 ``[B, H, W]`` frames."""
@@ -110,7 +131,7 @@ class MultipassPIV(nn.Module):
                 None if inval is None else inval.reshape(shape))
 
     def _refine_pass(self, p, frame_a, frame_b, u, v, inval):
-        """One CWS/DWS refinement pass from grid p-1 to grid p."""
+        """One CWS/DWS/DEF refinement pass from grid p-1 to grid p."""
         cfg = self.config
         w, o = self.schedule[p]
         B = frame_a.shape[0]
@@ -126,7 +147,7 @@ class MultipassPIV(nn.Module):
 
         kw = dict(frame_shape=cfg.frame_shape, wind_size=w, overlap=o,
                   max_shift=cfg.max_shift, flat_wrap=cfg.edge_exact)
-        if cfg.multipass_mode == "CWS":
+        if cfg.multipass_mode in ("CWS", "DEF"):
             # half-shift from the PRE-zeroed predictor
             u2 = u0 / 2.0
             v2 = v0 / 2.0
@@ -140,8 +161,21 @@ class MultipassPIV(nn.Module):
             u2 = torch.round(u0 / 2.0)  # integer shifts: a pure tile copy
             v2 = torch.round(v0 / 2.0)
         sx, sy = u2.reshape(B, -1), v2.reshape(B, -1)
-        aa = shift_windows(frame_a, -sx, -sy, **kw)
-        bb = shift_windows(frame_b, sx, sy, **kw)
+        if cfg.multipass_mode == "DEF":
+            # locally linearised displacement: the half-shift plus its
+            # gradient across the window, symmetric between the frames
+            step = float(w - o)
+            maps = [sx, sy] + [g.reshape(B, -1) for g in (
+                _gradient(u2, step, -1), _gradient(u2, step, -2),
+                _gradient(v2, step, -1), _gradient(v2, step, -2))]
+            kw.update(margin=cfg.def_margin, interp=cfg.cws_interp)
+            aa = def_windows(frame_a, *(-m for m in maps), **kw)
+            bb = def_windows(frame_b, *maps, **kw)
+        else:
+            if cfg.multipass_mode == "CWS":  # DWS stays the integer copy
+                kw.update(interp=cfg.cws_interp)
+            aa = shift_windows(frame_a, -sx, -sy, **kw)
+            bb = shift_windows(frame_b, sx, sy, **kw)
 
         corr = correlate_fft(aa, bb)
         du, dv, new_inval = self._peakfit(corr, cfg.validate)

@@ -1,0 +1,208 @@
+"""Window-deformation (DEF) resampling: the plain PyTorch version of the DEF
+kernel (``kernels/deform.py``) and the operands both read.
+
+It computes exactly what the TPU kernel ``_def_kernel`` behind
+``def_windows_pallas`` (``torchpiv_tpu/kernels/def_pallas.py``) computes.
+Every window is resampled with a per-PIXEL displacement: the window's centre
+shift plus its gradient times the pixel's signed offset from the window
+centre.
+
+* centre shifts clip to ``+-S`` with ``S = max_shift or max(w // 2, 1)`` and
+  split into ``dy, dx = floor(v)`` and ``fy, fx = v - floor(v)``;
+* each window reads a ``T**2`` tile, ``T = w + 2M + 1`` (bilinear) or
+  ``w + 2M + 4`` (bicubic), at its origin plus ``(dy, dx)`` minus
+  ``BASE = M`` (``M + 1`` bicubic), clamped into the (padded) frame; ``M`` is
+  the margin;
+* per pixel ``(i, j)`` the residual sample position, relative to the
+  bilinear tile origin, is ``ry = ((M + fy) + gyi*ioff) + gyj*joff`` (and
+  ``rx`` alike) with ``ioff = i - (w-1)/2``, clipped to
+  ``[0, 2M + 1 - 1e-3]``: deformations steeper than about ``2M / w`` px/px
+  saturate;
+* bilinear: hat weights ``max(0, 1 - |r - k|)`` on the two neighbours; a
+  pixel whose ``ry`` OR ``rx`` is an integer takes the floor corner (both
+  coordinates are replaced by their floors);
+* bicubic: Keys weights (a = -0.5) on the four neighbours
+  ``floor(r) .. floor(r) + 3`` of the one-pixel-earlier cubic tile; they
+  collapse to ``(0, 1, 0, 0)`` at integers on their own;
+* the taps are summed in ascending ``ky``, then ``kx``, each as
+  ``(wy * wx) * tile``.  The TPU kernel sums over all ``(2M+2)**2`` or
+  ``(2M+4)**2`` static tile shifts, and every term outside these taps is an
+  exact zero, so the float32 sums agree.
+
+With ``flat_wrap`` the frame is padded by ``S + M + 1`` (``S + M + 3``
+bicubic) so that edge windows reproduce the reference's flat-index clamped
+addressing and the tile clamp never binds.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from .shifts import (flat_wrap_pad, gather_tiles, split_shift, window_grid,
+                     padded_origins)
+
+
+class DefOperands(NamedTuple):
+    """What the DEF kernel reads: the padded float32 frames ``[B, Hp, Wp]``,
+    the per-window integer and fractional centre shifts, the four gradient
+    maps in the kernel's order (all ``[B, N]``), and the geometry."""
+
+    frame: torch.Tensor
+    dy: torch.Tensor  # int32
+    dx: torch.Tensor  # int32
+    fy: torch.Tensor
+    fx: torch.Tensor
+    gyi: torch.Tensor  # dv/dy: row residual per in-window row offset
+    gyj: torch.Tensor  # dv/dx
+    gxi: torch.Tensor  # du/dy
+    gxj: torch.Tensor  # du/dx
+    off: int
+    n_rows: int
+    n_cols: int
+    step: int
+    margin: int
+    cubic: bool
+
+
+def def_operands(
+    frame: torch.Tensor,
+    vel_x: torch.Tensor,
+    vel_y: torch.Tensor,
+    dudx: torch.Tensor,
+    dudy: torch.Tensor,
+    dvdx: torch.Tensor,
+    dvdy: torch.Tensor,
+    *,
+    frame_shape: Tuple[int, int],
+    wind_size: int,
+    overlap: int,
+    max_shift: Optional[int] = None,
+    margin: int = 2,
+    flat_wrap: bool = True,
+    interp: str = "bilinear",
+) -> DefOperands:
+    """Pad the ``[B, H, W]`` frames and prepare the ``[B, N]`` maps as the
+    TPU kernel's wrapper does (``def_pallas.py``)."""
+    if interp not in ("bilinear", "bicubic"):
+        raise ValueError(f"unknown interp {interp!r}")
+    if margin < 1:
+        raise ValueError(f"margin must be at least 1, not {margin}")
+    w = wind_size
+    cubic = interp == "bicubic"
+    maps = (vel_x, vel_y, dudx, dudy, dvdx, dvdy)
+    n_rows, n_cols = window_grid(frame, maps, frame_shape, w, overlap)
+    S = max_shift if max_shift is not None else max(w // 2, 1)
+    T = w + 2 * margin + (4 if cubic else 1)
+    frame = frame.to(torch.float32)
+    off = 0
+    if flat_wrap:
+        # the extreme tile (last window row, +S shift) stays inside
+        off = S + margin + (3 if cubic else 1)
+        frame = flat_wrap_pad(frame, off)
+    if frame.shape[-2] < T or frame.shape[-1] < T:
+        raise ValueError(f"a {T} px tile does not fit the {tuple(frame.shape[-2:])} frame")
+    dy, fy = split_shift(vel_y, S)
+    dx, fx = split_shift(vel_x, S)
+
+    def f32(m):
+        return m.to(torch.float32).contiguous()
+
+    return DefOperands(frame.contiguous(), dy, dx, fy, fx,
+                       f32(dvdy), f32(dvdx), f32(dudy), f32(dudx),
+                       off, n_rows, n_cols, w - overlap, margin, cubic)
+
+
+def keys_weight(d: torch.Tensor) -> torch.Tensor:
+    """Keys cubic-convolution weight (a = -0.5) at signed distance ``d``, in
+    the TPU kernel's term order (``def_pallas.py``, ``keys``)."""
+    a = -0.5
+    ad = d.abs()
+    ad2 = ad * ad
+    ad3 = ad * ad * ad
+    w_in = (a + 2) * ad3 - (a + 3) * ad2 + 1.0
+    w_out = a * ad3 - (5 * a) * ad2 + (8 * a) * ad - 4 * a
+    zero = torch.zeros((), dtype=d.dtype, device=d.device)
+    return torch.where(ad <= 1.0, w_in, torch.where(ad < 2.0, w_out, zero))
+
+
+def def_reference(ops: DefOperands, wind_size: int) -> torch.Tensor:
+    """The kernel's arithmetic on ``DefOperands`` -> ``[B, N, w, w]``."""
+    w = wind_size
+    M = ops.margin
+    T = w + 2 * M + (4 if ops.cubic else 1)
+    base = M + (1 if ops.cubic else 0)
+    n_tap = 4 if ops.cubic else 2
+    B, Hp, Wp = ops.frame.shape
+    dev = ops.frame.device
+    row0, col0 = padded_origins(ops.n_rows, ops.n_cols, ops.step, ops.off, dev)
+    ty = (row0 + ops.dy - base).clamp(0, Hp - T)
+    tx = (col0 + ops.dx - base).clamp(0, Wp - T)
+    tile = gather_tiles(ops.frame, ty, tx, T).reshape(B, -1, T * T)
+
+    half = (w - 1) / 2.0
+    ar = torch.arange(w, device=dev, dtype=torch.float32) - half
+    ioff = ar[:, None]
+    joff = ar[None, :]
+
+    # float32(2M + 1) - float32(1e-3): keeps floor(r) <= 2M
+    hi = (torch.tensor(2 * M + 1, dtype=torch.float32) - 1e-3).item()
+
+    def residual(f, gi, gj):
+        r = (M + f)[..., None, None] + gi[..., None, None] * ioff \
+            + gj[..., None, None] * joff
+        return r.clamp(0.0, hi)
+
+    ry = residual(ops.fy, ops.gyi, ops.gyj)
+    rx = residual(ops.fx, ops.gxi, ops.gxj)
+    fry = torch.floor(ry)
+    frx = torch.floor(rx)
+    if not ops.cubic:
+        # integer sample coordinate in EITHER axis -> floor corner
+        int_cell = (ry == fry) | (rx == frx)
+        ry = torch.where(int_cell, fry, ry)
+        rx = torch.where(int_cell, frx, rx)
+    ky0 = fry.to(torch.int64)
+    kx0 = frx.to(torch.int64)
+    ai = torch.arange(w, device=dev)[:, None]
+    aj = torch.arange(w, device=dev)[None, :]
+
+    def weight(r, k):  # tap k of the tile, as a float
+        if ops.cubic:
+            return keys_weight(r + 1.0 - k)
+        return torch.clamp(1.0 - (r - k).abs(), min=0.0)
+
+    acc = torch.zeros_like(ry)
+    for a in range(n_tap):
+        ky = ky0 + a
+        wy = weight(ry, ky.to(torch.float32))
+        for b in range(n_tap):
+            kx = kx0 + b
+            wx = weight(rx, kx.to(torch.float32))
+            idx = (ai + ky) * T + (aj + kx)
+            val = torch.gather(tile, 2, idx.reshape(B, -1, w * w)).reshape(idx.shape)
+            acc = acc + (wy * wx) * val
+    return acc
+
+
+def def_windows_reference(
+    frame: torch.Tensor,
+    vel_x: torch.Tensor,
+    vel_y: torch.Tensor,
+    dudx: torch.Tensor,
+    dudy: torch.Tensor,
+    dvdx: torch.Tensor,
+    dvdy: torch.Tensor,
+    **kw,
+) -> torch.Tensor:
+    """Deformed windows ``[B, N, w, w]`` float32 from ``[B, H, W]`` frames and
+    ``[B, N]`` centre shifts and gradients (``[N, w, w]`` from ``[H, W]`` and
+    ``[N]``); keywords as ``def_operands``."""
+    maps = (vel_x, vel_y, dudx, dudy, dvdx, dvdy)
+    batched = frame.dim() == 3
+    if not batched:
+        frame = frame[None]
+        maps = tuple(m[None] for m in maps)
+    ops = def_operands(frame, *maps, **kw)
+    out = def_reference(ops, kw["wind_size"])
+    return out if batched else out[0]

@@ -13,6 +13,14 @@ It keeps the reference's flat-index edge behaviour:
 
 ``torch.argmax`` returns the first maximal index, as ``jnp.argmax`` does, and
 ``torch.round`` rounds half to even, as ``jnp.round`` does.
+
+This chain of torch ops is also the plain version of the fused CUDA peak-fit
+kernel (``kernels/peakfit.py``).  One difference is inherited from the JAX
+package: with ``min_subtract`` the XLA fit, and so this function, adds
+``EPS - min`` to a sample in one step, which loses ``EPS`` once
+``|min| >= 2``, while the fused kernels compute ``(x - min) + EPS``.  The two
+agree unless a sample that the fit reads lies within about 2 of the map's
+minimum (a blank window).
 """
 from __future__ import annotations
 

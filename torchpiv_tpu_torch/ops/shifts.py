@@ -1,7 +1,7 @@
-"""Per-window CWS/DWS window shift: the plain PyTorch version of the shift
-kernel (``kernels/shift.py``).
+"""Per-window CWS/DWS window shift: the plain PyTorch versions of the shift
+kernels (``kernels/shift.py``).
 
-It computes exactly what the TPU kernel ``_shift_kernel``
+Bilinear: exactly what the TPU kernel ``_shift_kernel``
 (``torchpiv_tpu/kernels/shift_pallas.py``) computes, which is what the TPU
 main path runs:
 
@@ -12,6 +12,14 @@ main path runs:
 * the tile's four corner slices blend with per-window scalar weights, in the
   kernel's term order; a window whose shift is an integer in either axis
   takes the floor corner unchanged.
+
+Bicubic (``interp="bicubic"``, the TPU kernel ``_shift_kernel_bicubic``):
+the Keys cubic convolution (a = -0.5) over a ``(w+4)**2`` tile at the
+origin plus ``(dy - 1, dx - 1)``, with per-window scalar weights
+``cubic_weights(fy)``, ``cubic_weights(fx)``; the sum runs over ``kx``
+inside ``ky`` as the kernel's does.  Integer shifts give the weights
+``(0, 1, 0, 0)`` exactly, so they reproduce the integer copy without a
+special case.  The flat-wrap pad is ``S + 2``.
 
 These differ from the XLA ``cws_shift``/``dws_shift`` of the JAX package
 (per-pixel weights, no clamp).  With ``flat_wrap`` the frame is padded by
@@ -68,6 +76,50 @@ class ShiftOperands(NamedTuple):
     step: int
 
 
+def window_grid(frame: torch.Tensor, maps, frame_shape: Tuple[int, int],
+                wind_size: int, overlap: int) -> Tuple[int, int]:
+    """The ``(n_rows, n_cols)`` window grid, after checking that the
+    ``[B, H, W]`` frames and the ``[B, N]`` per-window maps fit it."""
+    n_rows, n_cols = get_field_shape(frame_shape, wind_size, overlap)
+    if tuple(frame.shape[-2:]) != tuple(frame_shape):
+        raise ValueError(f"frame shape {tuple(frame.shape[-2:])} != {tuple(frame_shape)}")
+    want = (frame.shape[0], n_rows * n_cols)
+    if any(m.shape != want for m in maps):
+        raise ValueError(
+            f"per-window maps must be [B, {n_rows * n_cols}] for frames "
+            f"{tuple(frame.shape)}")
+    return n_rows, n_cols
+
+
+def split_shift(vel: torch.Tensor, S: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Clip a shift map to ``+-S`` and split it into its integer part (int32)
+    and fractional part (float32), as the TPU kernels' wrappers do."""
+    v = vel.to(torch.float32).clamp(-S, S)
+    d = torch.floor(v)
+    return d.to(torch.int32).contiguous(), (v - d).contiguous()
+
+
+def gather_tiles(frame: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor,
+                 T: int) -> torch.Tensor:
+    """``[B, N, T, T]`` tiles of ``[B, Hp, Wp]`` frames at the ``[B, N]``
+    origins ``(ty, tx)``."""
+    B, _, Wp = frame.shape
+    ar = torch.arange(T, device=frame.device)
+    idx = ((ty[..., None] + ar)[..., :, None] * Wp
+           + (tx[..., None] + ar)[..., None, :])
+    return torch.gather(frame.reshape(B, -1), 1,
+                        idx.reshape(B, -1)).reshape(*idx.shape)
+
+
+def padded_origins(n_rows: int, n_cols: int, step: int, off: int, device):
+    """Flat ``[N]`` row and column origins of the windows in a frame padded
+    by ``off``."""
+    n = torch.arange(n_rows * n_cols, device=device)
+    row0 = torch.div(n, n_cols, rounding_mode="floor") * step + off
+    col0 = (n % n_cols) * step + off
+    return row0, col0
+
+
 def shift_operands(
     frame: torch.Tensor,
     vel_x: torch.Tensor,
@@ -78,54 +130,41 @@ def shift_operands(
     overlap: int,
     max_shift: Optional[int] = None,
     flat_wrap: bool = True,
+    interp: str = "bilinear",
 ) -> ShiftOperands:
     """Pad the ``[B, H, W]`` frames and split the ``[B, N]`` shifts as the
     TPU kernel's wrapper does (``shift_pallas.py``, clip/floor/frac)."""
+    if interp not in ("bilinear", "bicubic"):
+        raise ValueError(f"unknown interp {interp!r}")
     w = wind_size
-    n_rows, n_cols = get_field_shape(frame_shape, w, overlap)
-    if tuple(frame.shape[-2:]) != tuple(frame_shape):
-        raise ValueError(f"frame shape {tuple(frame.shape[-2:])} != {tuple(frame_shape)}")
-    if vel_x.shape != (frame.shape[0], n_rows * n_cols) or vel_y.shape != vel_x.shape:
-        raise ValueError(
-            f"shift maps must be [B, {n_rows * n_cols}] for frames {tuple(frame.shape)}")
+    cubic = interp == "bicubic"
+    n_rows, n_cols = window_grid(frame, (vel_x, vel_y), frame_shape, w, overlap)
     S = max_shift if max_shift is not None else max(w // 2, 1)
+    T = w + (4 if cubic else 1)
     frame = frame.to(torch.float32)
     off = 0
     if flat_wrap:
-        frame = flat_wrap_pad(frame, S)
-        off = S
-    if frame.shape[-2] < w + 1 or frame.shape[-1] < w + 1:
-        raise ValueError(f"a {w}+1 px tile does not fit the {tuple(frame.shape[-2:])} frame")
-    vx = vel_x.to(torch.float32).clamp(-S, S)
-    vy = vel_y.to(torch.float32).clamp(-S, S)
-    dy = torch.floor(vy)
-    dx = torch.floor(vx)
-    return ShiftOperands(
-        frame.contiguous(),
-        dy.to(torch.int32).contiguous(),
-        dx.to(torch.int32).contiguous(),
-        (vy - dy).contiguous(),
-        (vx - dx).contiguous(),
-        off, n_rows, n_cols, w - overlap,
-    )
+        off = S + 2 if cubic else S  # the cubic stencil reaches floor-1..floor+2
+        frame = flat_wrap_pad(frame, off)
+    if frame.shape[-2] < T or frame.shape[-1] < T:
+        raise ValueError(f"a {T} px tile does not fit the {tuple(frame.shape[-2:])} frame")
+    dy, fy = split_shift(vel_y, S)
+    dx, fx = split_shift(vel_x, S)
+    return ShiftOperands(frame.contiguous(), dy, dx, fy, fx,
+                         off, n_rows, n_cols, w - overlap)
 
 
 def blend_reference(ops: ShiftOperands, wind_size: int) -> torch.Tensor:
-    """The kernel's arithmetic on ``ShiftOperands`` -> ``[B, N, w, w]``."""
+    """The bilinear kernel's arithmetic on ``ShiftOperands`` ->
+    ``[B, N, w, w]``."""
     w = wind_size
     T = w + 1
     B, Hp, Wp = ops.frame.shape
-    dev = ops.frame.device
-    n = torch.arange(ops.n_rows * ops.n_cols, device=dev)
-    row0 = torch.div(n, ops.n_cols, rounding_mode="floor") * ops.step + ops.off
-    col0 = (n % ops.n_cols) * ops.step + ops.off
+    row0, col0 = padded_origins(ops.n_rows, ops.n_cols, ops.step, ops.off,
+                                ops.frame.device)
     ty = (row0 + ops.dy).clamp(0, Hp - T)
     tx = (col0 + ops.dx).clamp(0, Wp - T)
-    ar = torch.arange(T, device=dev)
-    idx = ((ty[..., None] + ar)[..., :, None] * Wp
-           + (tx[..., None] + ar)[..., None, :])  # [B, N, T, T]
-    tile = torch.gather(ops.frame.reshape(B, -1), 1,
-                        idx.reshape(B, -1)).reshape(*idx.shape)
+    tile = gather_tiles(ops.frame, ty, tx, T)
     f11 = tile[..., :w, :w]
     f21 = tile[..., :w, 1:]
     f12 = tile[..., 1:, :w]
@@ -142,6 +181,45 @@ def blend_reference(ops: ShiftOperands, wind_size: int) -> torch.Tensor:
     return torch.where((fy == 0.0) | (fx == 0.0), f11, blend)
 
 
+def cubic_weights(t: torch.Tensor):
+    """Keys cubic-convolution weights (a = -0.5) of the four taps at
+    ``floor - 1 .. floor + 2`` for the fraction ``t``, in the TPU kernel's
+    term order (``shift_pallas.py``, ``cubic_weights``)."""
+    a = -0.5
+
+    def inner(d):  # |d| <= 1
+        return (a + 2) * (d * d * d) - (a + 3) * (d * d) + 1.0
+
+    def outer(d):  # 1 <= |d| < 2
+        return a * (d * d * d) - (5 * a) * (d * d) + (8 * a) * d - 4 * a
+
+    return outer(t + 1.0), inner(t), inner(1.0 - t), outer(2.0 - t)
+
+
+def blend_reference_bicubic(ops: ShiftOperands, wind_size: int) -> torch.Tensor:
+    """The bicubic kernel's arithmetic on ``ShiftOperands`` (made with
+    ``interp="bicubic"``) -> ``[B, N, w, w]``."""
+    w = wind_size
+    T = w + 4
+    B, Hp, Wp = ops.frame.shape
+    row0, col0 = padded_origins(ops.n_rows, ops.n_cols, ops.step, ops.off,
+                                ops.frame.device)
+    # tile origin = window origin + floor(shift) - 1 (stencil margin)
+    ty = (row0 + ops.dy - 1).clamp(0, Hp - T)
+    tx = (col0 + ops.dx - 1).clamp(0, Wp - T)
+    tile = gather_tiles(ops.frame, ty, tx, T)
+    wy = cubic_weights(ops.fy[..., None, None])
+    wx = cubic_weights(ops.fx[..., None, None])
+    acc = torch.zeros((*ops.fy.shape, w, w), dtype=torch.float32,
+                      device=ops.frame.device)
+    for ky in range(4):
+        row_acc = torch.zeros_like(acc)
+        for kx in range(4):
+            row_acc = row_acc + wx[kx] * tile[..., ky:ky + w, kx:kx + w]
+        acc = acc + wy[ky] * row_acc
+    return acc
+
+
 def shift_windows_reference(
     frame: torch.Tensor,
     vel_x: torch.Tensor,
@@ -152,6 +230,7 @@ def shift_windows_reference(
     overlap: int,
     max_shift: Optional[int] = None,
     flat_wrap: bool = True,
+    interp: str = "bilinear",
 ) -> torch.Tensor:
     """Shifted windows ``[B, N, w, w]`` float32 from ``[B, H, W]`` frames and
     ``[B, N]`` per-window shifts (``[N, w, w]`` from ``[H, W]`` and ``[N]``)."""
@@ -160,6 +239,7 @@ def shift_windows_reference(
         frame, vel_x, vel_y = frame[None], vel_x[None], vel_y[None]
     ops = shift_operands(frame, vel_x, vel_y, frame_shape=frame_shape,
                          wind_size=wind_size, overlap=overlap,
-                         max_shift=max_shift, flat_wrap=flat_wrap)
-    out = blend_reference(ops, wind_size)
+                         max_shift=max_shift, flat_wrap=flat_wrap, interp=interp)
+    blend = blend_reference_bicubic if interp == "bicubic" else blend_reference
+    out = blend(ops, wind_size)
     return out if batched else out[0]

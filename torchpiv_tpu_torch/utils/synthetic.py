@@ -1,6 +1,6 @@
 """Synthetic PIV image pairs with known displacement (numpy).
 
-Copy of ``render_particles`` and ``particle_pair`` from
+Copy of ``render_particles``, ``particle_pair`` and ``shear_flow`` from
 ``torchpiv_tpu/utils/synthetic.py``: random Gaussian particles rendered
 into frame A, advected by a prescribed flow, and re-rendered into frame B.
 """
@@ -94,3 +94,12 @@ def particle_pair(
         return np.clip(f, 0, 255).astype(np.uint8)
 
     return finish(fa), finish(fb)
+
+
+def shear_flow(u0: float = 1.0, du_dy: float = 0.004):
+    """Linear shear: u(y) = u0 + du_dy * y, v = 0."""
+
+    def disp(xs, ys):
+        return u0 + du_dy * ys, np.zeros_like(xs)
+
+    return disp
