@@ -9,11 +9,13 @@ Phases, each failing loudly:
    off;
 2. build every CUDA kernel of the package from its sources;
 3. each kernel (bilinear and bicubic window shift, window deformation,
-   fused peak fit) against its plain PyTorch version on the card, at the
-   main paths' shapes (2048x2048 frames, pass 2: w32/o16, a batch of 4;
-   the peak fit at pass 1 too), with times: kernel, plain version, bound,
-   and one PyTorch library call that computes the same function where
-   there is one (``grid_sample`` bilinear, a yardstick only);
+   fused peak fit, correlate-and-fit, whole pass) against its plain PyTorch
+   version on the card, at the main paths' shapes (2048x2048 frames, pass 2:
+   w32/o16, a batch of 4; the fits at pass 1, w64/o32, too), with times:
+   kernel, plain version, bound, and a yardstick that computes the same
+   function where there is one (``grid_sample`` bilinear; for the two
+   pass-fusion kernels the port's own unfused chain); the packed output of
+   the window shift against the repacked standard output;
 4. the first path: ``OfflinePIV`` over 8 synthetic 2048x2048 BMP pairs with
    a uniform displacement, 64 px windows, 32 px overlap, 2-pass CWS; checks
    the recovered displacement, the valid share and the kernel launch
@@ -22,10 +24,16 @@ Phases, each failing loudly:
    fused peak fit; checks the recovered shear, the valid share and the
    launch counts, and prints pairs/s beside the same run with the torch-op
    peak fit; then one batch each of CWS + bicubic and DEF + bicubic;
-6. the engine's time per batch and its device time by kernel, CWS and DEF
-   (both peak fits);
-7. the CUDA engine against the CPU engine (plain versions) on one full-size
-   pair, CWS and DEF.
+6. the pass-fusion paths: ``OfflinePIV`` over the 8 uniform pairs with
+   ``fused="split"`` and with ``fused="on"`` (displacement, valid share and
+   exact launch counts), and one batch of ``fused="split"`` + DEF over the
+   sheared pairs;
+7. the engine's time per batch, its device time by kernel and its peak
+   device memory: CWS unfused, ``split`` and ``on`` (no FFT-library kernel
+   and no ``fftshift`` roll may appear in the fused profiles), and DEF with
+   both peak fits;
+8. the CUDA engine against the CPU engine (plain versions) on one full-size
+   pair: CWS, DEF, ``split`` and ``on``.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -419,6 +427,209 @@ def phase_peakfit_kernel(frames_a: torch.Tensor, frames_b: torch.Tensor) -> dict
         pass1={k: p1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")})
 
 
+def fft_flops(w: int) -> float:
+    """The least operations of one window pair's correlation: two forward
+    and one inverse real 2-D FFT (each half a complex one of ``5 n log2 n``,
+    ``n = w * w``) and the spectrum product (6 a sample, half a spectrum)."""
+    n = w * w
+    return 3 * 0.5 * 5 * n * np.log2(n) + 3 * n
+
+
+def fit_agreement(got, want, label: str) -> float:
+    """Hold a pass-fusion kernel's ``(u, v, invalid)`` against its plain
+    version's.  The two run different float32 FFTs, so the tolerance is:
+    masks differ on at most 0.1% of the windows, the integer peak is the
+    same on at least 99.9% of the jointly valid ones, and there ``u, v``
+    agree within RMS 1e-4 px and 1e-3 px at most.  Returns the largest
+    difference."""
+    (ku, kv, ki), (pu, pv, pi) = got, want
+    flips = (ki != pi).float().mean().item()
+    both = ~(ki | pi)
+    du, dv = (ku - pu)[both], (kv - pv)[both]
+    same = (du.abs() < 0.5) & (dv.abs() < 0.5)
+    moved = 1.0 - same.float().mean().item()
+    d = torch.cat([du[same], dv[same]])
+    rms = d.square().mean().sqrt().item()
+    worst = d.abs().max().item()
+    log(f"{label}: {ku.numel()} windows, invalid share {ki.float().mean().item():.4f}, "
+        f"mask mismatch {flips:.6f}, other peak cell {moved:.6f}, RMS {rms:.3e} px, "
+        f"largest {worst:.3e} px")
+    check(flips <= 1e-3, f"{label}: masks differ on {flips} of the windows")
+    check(moved <= 1e-3, f"{label}: another peak cell on {moved} of the windows")
+    check(rms < 1e-4 and worst < 1e-3, f"{label}: RMS {rms}, largest {worst} px")
+    return worst
+
+
+def pass2_shifts(n: int, g, S: int = 16):
+    """Per-window shifts of the two frames for a CWS-like pass 2: a common
+    offset in +-(S - 2) px, so the tiles reach the clamp and the pad, with
+    -+ half the displacement on top; a quarter of the windows integer-valued
+    (the DWS tile copy)."""
+    common_x = torch.rand(BATCH, n, generator=g) * 2 * (S - 2) - (S - 2)
+    common_y = torch.rand(BATCH, n, generator=g) * 2 * (S - 2) - (S - 2)
+    hx = torch.full((BATCH, n), DISPLACEMENT[0] / 2)
+    hy = torch.full((BATCH, n), DISPLACEMENT[1] / 2)
+    q = n // 4
+    for t in (common_x, common_y, hx, hy):
+        t[:, :q] = t[:, :q].round()
+    return common_x - hx, common_y - hy, common_x + hx, common_y + hy
+
+
+def phase_corrfit_kernel(frames_a: torch.Tensor, frames_b: torch.Tensor) -> dict:
+    """``correlate_peakfit`` against its plain version at the two pass
+    shapes of the 4 MP path; the unfused chain (``correlate_fft`` and the
+    ``peakfit`` kernel) as the yardstick."""
+    from torchpiv_tpu_torch.kernels import peakfit as peakfit_kernel
+    from torchpiv_tpu_torch.kernels.corrfit import correlate_peakfit, launch
+    from torchpiv_tpu_torch.kernels.shift import shift_windows
+    from torchpiv_tpu_torch.ops.corrfit import correlate_peakfit_reference
+    from torchpiv_tpu_torch.ops.correlate import correlate_fft
+    from torchpiv_tpu_torch.ops.windows import extract_windows
+
+    dev = frames_a.device
+    passes = {}
+    max_err = 0.0
+    for label, (w, o), dc in (("pass2", (32, 16), False), ("pass1", (64, 32), True)):
+        if dc:
+            aa = extract_windows(frames_a, w, o)
+            bb = extract_windows(frames_b, w, o)
+        else:
+            g = torch.Generator(device="cpu").manual_seed(2)
+            vxa, vya, vxb, vyb = (t.to(dev) for t in pass2_shifts(window_count(w, o), g))
+            kw = dict(frame_shape=FRAME, wind_size=w, overlap=o)
+            aa = shift_windows(frames_a, vxa, vya, **kw)
+            bb = shift_windows(frames_b, vxb, vyb, **kw)
+        aa = aa.reshape(-1, w, w).contiguous()
+        bb = bb.reshape(-1, w, w).contiguous()
+        got = correlate_peakfit(aa, bb, True, 1.2, 3, dc)
+        want = correlate_peakfit_reference(aa, bb, True, 1.2, 3, dc)
+        torch.cuda.synchronize()
+        max_err = max(max_err, fit_agreement(
+            got, want, f"correlate_peakfit {label} {tuple(aa.shape)}"))
+        nu, nv, ni = correlate_peakfit(aa, bb, False, 1.2, 3, dc)
+        check(ni is None and torch.equal(nu, got[0]) and torch.equal(nv, got[1]),
+              "validate=False must return the same u, v and no mask")
+        ms = cuda_ms(lambda: launch(aa, bb, True, 1.2, 3, dc))
+        plain_ms = cuda_ms(lambda: correlate_peakfit_reference(aa, bb, True, 1.2, 3, dc),
+                           reps=3)
+        chain_ms = cuda_ms(lambda: peakfit_kernel.launch(
+            correlate_fft(aa, bb, dc_normalize=dc), True, 1.2, 3, True))
+        n = aa.shape[0]
+        n_bytes = n * (2 * w * w * 4 + 9)
+        n_flops = n * (fft_flops(w) + 15 * w * w)  # the fit: 15 a sample
+        bound_ms, bound_by = roofline(n_bytes, n_flops)
+        passes[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=chain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, n_bytes=n_bytes,
+                             n_flops=n_flops, shape=list(aa.shape))
+        del aa, bb, got, want
+    p2, p1 = passes["pass2"], passes["pass1"]
+    return kernel_row(
+        "correlate_peakfit", "corrfit.cu",
+        "torchpiv_tpu/experimental/fused_pass.py:483",
+        max_err, p2["ms"], p2["plain_ms"], p2["n_bytes"], p2["n_flops"],
+        p2["library_ms"], library="correlate_fft + peakfit kernel (the unfused chain)",
+        shape=p2["shape"],
+        pass1={k: p1[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                  "bound_by", "shape")})
+
+
+def phase_fused_kernel(frames_a: torch.Tensor, frames_b: torch.Tensor) -> dict:
+    """``fused_piv_pass`` against its plain version at the two pass shapes;
+    two ``shift_windows`` launches and the unfused chain as the yardstick."""
+    from torchpiv_tpu_torch.kernels import peakfit as peakfit_kernel
+    from torchpiv_tpu_torch.kernels.corrfit import correlate_peakfit
+    from torchpiv_tpu_torch.kernels.fused_pass import fused_piv_pass, launch
+    from torchpiv_tpu_torch.kernels.shift import launch as shift_launch
+    from torchpiv_tpu_torch.kernels.shift import shift_windows
+    from torchpiv_tpu_torch.ops.corrfit import fused_pass_reference
+    from torchpiv_tpu_torch.ops.correlate import correlate_fft
+    from torchpiv_tpu_torch.ops.shifts import shift_operands
+
+    dev = frames_a.device
+    passes = {}
+    max_err = 0.0
+    for label, (w, o), dc in (("pass2", (32, 16), False), ("pass1", (64, 32), True)):
+        n = window_count(w, o)
+        if dc:  # the first pass: zero shifts
+            maps = [torch.zeros(BATCH, n, device=dev)] * 4
+        else:
+            g = torch.Generator(device="cpu").manual_seed(3)
+            maps = [t.to(dev) for t in pass2_shifts(n, g)]
+        kw = dict(frame_shape=FRAME, wind_size=w, overlap=o)
+        got = fused_piv_pass(frames_a, frames_b, *maps, dc_normalize=dc, **kw)
+        want = fused_pass_reference(frames_a, frames_b, *maps, dc_normalize=dc, **kw)
+        torch.cuda.synchronize()
+        max_err = max(max_err, fit_agreement(
+            got, want, f"fused_piv_pass {label} {tuple(maps[0].shape)} w{w}"))
+        del want
+        # the kernel shifts with shift_windows' code and fits with
+        # correlate_peakfit's: the same fields bit for bit, integer and
+        # fractional shifts alike
+        aa = shift_windows(frames_a, maps[0], maps[1], **kw)
+        bb = shift_windows(frames_b, maps[2], maps[3], **kw)
+        split = correlate_peakfit(aa.reshape(-1, w, w), bb.reshape(-1, w, w),
+                                  True, 1.2, 3, dc)
+        check(all(torch.equal(a.reshape(-1), b) for a, b in zip(got, split)),
+              f"fused_piv_pass {label} != correlate_peakfit of shift_windows")
+        del aa, bb, split, got
+        ops_a = shift_operands(frames_a, maps[0], maps[1], **kw)
+        ops_b = shift_operands(frames_b, maps[2], maps[3], **kw)
+        ms = cuda_ms(lambda: launch(ops_a, ops_b, w, True, 1.2, 3, dc))
+        wrapper_ms = cuda_ms(lambda: fused_piv_pass(
+            frames_a, frames_b, *maps, dc_normalize=dc, **kw))
+        plain_ms = cuda_ms(lambda: fused_pass_reference(
+            frames_a, frames_b, *maps, dc_normalize=dc, **kw), reps=3)
+        chain_ms = cuda_ms(lambda: peakfit_kernel.launch(
+            correlate_fft(shift_launch(ops_a, w), shift_launch(ops_b, w),
+                          dc_normalize=dc).reshape(-1, w, w), True, 1.2, 3, True))
+        B, Hp, Wp = ops_a.frame.shape
+        n_bytes = B * (2 * Hp * Wp * 4 + n * (8 * 4 + 9))
+        # per window: two blends of 7 a pixel, the correlation, the fit
+        n_flops = B * n * (2 * 7 * w * w + fft_flops(w) + 15 * w * w)
+        bound_ms, bound_by = roofline(n_bytes, n_flops)
+        passes[label] = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                             library_ms=chain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, n_bytes=n_bytes, n_flops=n_flops,
+                             shape=[B, Hp, Wp, n, w])
+    p2, p1 = passes["pass2"], passes["pass1"]
+    return kernel_row(
+        "fused_piv_pass", "fused_pass.cu",
+        "torchpiv_tpu/experimental/fused_pass.py:293",
+        max_err, p2["ms"], p2["plain_ms"], p2["n_bytes"], p2["n_flops"],
+        p2["library_ms"],
+        library="2 shift_windows launches + correlate_fft + peakfit kernel",
+        wrapper_ms=p2["wrapper_ms"], shape=p2["shape"],
+        pass1={k: p1[k] for k in ("ms", "wrapper_ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by", "shape")})
+
+
+def phase_packed_shift(frames: torch.Tensor) -> None:
+    """``shift_windows(packed=True)`` against the repacked standard output
+    at the pass-2 shape (127 columns: a tail of one window)."""
+    from torchpiv_tpu_torch.kernels.shift import launch, shift_windows
+    from torchpiv_tpu_torch.ops.packing import pack_windows
+    from torchpiv_tpu_torch.ops.shifts import shift_operands
+
+    w, o = 32, 16
+    n_side = (FRAME[0] - w) // (w - o) + 1
+    g = torch.Generator(device="cpu").manual_seed(4)
+    kw = dict(frame_shape=FRAME, wind_size=w, overlap=o)
+    cases = shift_cases(n_side * n_side, g)
+    for case, (vx, vy) in cases.items():
+        vx, vy = vx.to(frames.device), vy.to(frames.device)
+        got = shift_windows(frames, vx, vy, packed=True, **kw)
+        want = pack_windows(shift_windows(frames, vx, vy, **kw), n_side, n_side, w)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"packed shift_windows {case} != pack_windows of the standard output")
+        del got, want
+    ops = shift_operands(frames, vx, vy, **kw)
+    ms = cuda_ms(lambda: launch(ops, w, packed=True))
+    std_ms = cuda_ms(lambda: launch(ops, w))
+    log(f"shift_windows packed: bit-exact in {len(cases)} cases; "
+        f"{ms:.4f} ms per launch packed, {std_ms:.4f} ms standard")
+
+
 def phase_kernels(folder: str) -> list:
     """Every kernel against its plain version; returns the kernels' rows."""
     from torchpiv_tpu_torch.io.dataset import PIVDataset
@@ -429,6 +640,9 @@ def phase_kernels(folder: str) -> list:
     rows = phase_shift_kernels(frames_a)
     rows.append(phase_def_kernel(frames_a))
     rows.append(phase_peakfit_kernel(frames_a, frames_b))
+    rows.append(phase_corrfit_kernel(frames_a, frames_b))
+    rows.append(phase_fused_kernel(frames_a, frames_b))
+    phase_packed_shift(frames_a)
     torch.cuda.empty_cache()
     log("kernels of the port: " + ", ".join(r["name"] for r in rows))
     return rows
@@ -495,16 +709,73 @@ def phase_main_path(folder: str, kernels):
         f"launches {launches}")
     check_fields(fields, piv, N_PAIRS)
     n_batches = -(-N_PAIRS // BATCH)
-    check(launches == {"shift_windows": 2 * n_batches, "shift_windows_bicubic": 0,
-                       "def_windows": 0, "peakfit": 0}, f"launches {launches}")
+    check(launches == only(launches, shift_windows=2 * n_batches),
+          f"launches {launches}")
+    check_displacement(fields, "CWS path")
+    return launches, pairs_per_s
+
+
+def only(launches: dict, **counts) -> dict:
+    """The expected launch counts: ``counts``, and 0 for every other kernel."""
+    return {**dict.fromkeys(launches, 0), **counts}
+
+
+def check_displacement(fields, label: str) -> None:
     for _, _, u, v in fields:
         mu = u[2:-2, 2:-2].mean() / UNIT
         mv = -v[2:-2, 2:-2].mean() / UNIT  # the y axis is flipped
-        check(abs(mu - DISPLACEMENT[0]) < 0.05, f"mean u {mu}")
-        check(abs(mv - DISPLACEMENT[1]) < 0.05, f"mean v {mv}")
-    log(f"CWS path: interior mean displacement of the last pair "
+        check(abs(mu - DISPLACEMENT[0]) < 0.05, f"{label}: mean u {mu}")
+        check(abs(mv - DISPLACEMENT[1]) < 0.05, f"{label}: mean v {mv}")
+    log(f"{label}: interior mean displacement of the last pair "
         f"({mu:.4f}, {mv:.4f}) px, expected {DISPLACEMENT}")
-    return launches, pairs_per_s
+
+
+def phase_fused_paths(uniform: str, shear: str, kernels) -> dict:
+    """OfflinePIV at 4 MP, w64/o32, 2-pass CWS over the uniform pairs with
+    ``fused="split"`` and with ``fused="on"``, then one batch of
+    ``fused="split"`` + DEF over the sheared pairs; returns
+    ``{mode: (launches, pairs_per_s)}`` of the two CWS runs."""
+    from torchpiv_tpu_torch import OfflinePIV
+
+    kw = dict(wind_size=64, overlap=32, multipass=2, batch_size=BATCH)
+    n_batches = -(-N_PAIRS // BATCH)
+    out = {}
+    for fused, want in (
+            # per batch: one correlate-and-fit launch a pass and one shift
+            # launch a frame, or one whole-pass launch a pass
+            ("split", dict(correlate_peakfit=2 * n_batches,
+                           shift_windows=2 * n_batches)),
+            ("on", dict(fused_piv_pass=2 * n_batches))):
+        label = f"CWS path fused={fused}"
+        piv = OfflinePIV(uniform, multipass_mode="CWS",
+                         engine_options={"fused": fused}, **kw)
+        check(piv.engine.device.type == "cuda" and piv.engine.config.fused == fused,
+              f"{label}: the knob did not reach an engine on the card")
+        valid = warm_up(piv, uniform)
+        log(f"{label}: valid share {valid:.4f} over the first {BATCH} pairs")
+        check(valid > 0.95, f"{label}: valid share {valid}")
+        fields, launches, pairs_per_s = drive(piv, kernels)
+        log(f"{label}: {len(fields)} pairs at {pairs_per_s:.3f} pairs/s, "
+            f"launches {launches}")
+        check_fields(fields, piv, N_PAIRS)
+        check(launches == only(launches, **want), f"{label}: launches {launches}")
+        check_displacement(fields, label)
+        out[fused] = (launches, pairs_per_s)
+
+    piv = OfflinePIV(shear, multipass_mode="DEF", max_pairs=BATCH,
+                     engine_options={"fused": "split"}, **kw)
+    fields, launches, _ = drive(piv, kernels)
+    check_fields(fields, piv, BATCH)
+    check(launches == only(launches, def_windows=2, correlate_peakfit=2),
+          f"DEF fused=split launches {launches}")
+    _, y = piv.engine.final_coordinates
+    mae = max(np.abs(np.flip(u, axis=0)[2:-2, 2:-2] / UNIT
+                     - (SHEAR[0] + SHEAR[1] * y[2:-2, 2:-2])).mean()
+              for _, _, u, _ in fields)
+    log(f"DEF fused=split: one batch, launches {launches}, "
+        f"worst mean |u - shear| {mae:.4f} px")
+    check(mae < 0.1, f"DEF fused=split shear error {mae}")
+    return out
 
 
 def phase_def_path(folder: str, kernels):
@@ -525,9 +796,8 @@ def phase_def_path(folder: str, kernels):
         f"{pairs_per_s:.3f} pairs/s, launches {launches}")
     check_fields(fields, piv, N_SHEAR_PAIRS)
     n_batches = -(-N_SHEAR_PAIRS // BATCH)
-    check(launches == {"shift_windows": 0, "shift_windows_bicubic": 0,
-                       "def_windows": 2 * n_batches, "peakfit": 2 * n_batches},
-          f"launches {launches}")
+    check(launches == only(launches, def_windows=2 * n_batches,
+                           peakfit=2 * n_batches), f"launches {launches}")
     _, y = piv.engine.final_coordinates
     want = SHEAR[0] + SHEAR[1] * y[2:-2, 2:-2]
     for _, _, u, v in fields:
@@ -566,9 +836,8 @@ def phase_bicubic_paths(folder: str, kernels) -> dict:
                          engine_options={"cws_interp": "bicubic"})
         fields, launches, _ = drive(piv, kernels)
         check_fields(fields, piv, BATCH)
-        want = dict.fromkeys(launches, 0)
-        want[expect] = 2
-        check(launches == want, f"{mode} + bicubic launches {launches}")
+        check(launches == only(launches, **{expect: 2}),
+              f"{mode} + bicubic launches {launches}")
         _, y = piv.engine.final_coordinates
         mae = max(np.abs(np.flip(u, axis=0)[2:-2, 2:-2] / UNIT
                          - (SHEAR[0] + SHEAR[1] * y[2:-2, 2:-2])).mean()
@@ -580,9 +849,10 @@ def phase_bicubic_paths(folder: str, kernels) -> dict:
     return out["CWS"]
 
 
-def phase_profile(folder: str, label: str, **cfg_kw) -> float:
-    """Engine time per batch (CUDA events) and device time by kernel
-    (``torch.profiler``) for one batch of ``folder``; returns ms per pair."""
+def phase_profile(folder: str, label: str, **cfg_kw) -> dict:
+    """Engine time per batch (CUDA events), peak device memory and device
+    time by kernel (``torch.profiler``) for one batch of ``folder``; returns
+    ``{"ms_pair", "ms_batch", "peak_bytes", "kernels": {name: ms}}``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -597,6 +867,15 @@ def phase_profile(folder: str, label: str, **cfg_kw) -> float:
     ms = cuda_ms(lambda: packed_forward(engine, a, b), reps=5)
     log(f"engine {label}: {ms:.3f} ms per batch of {BATCH} = {ms / BATCH:.3f} "
         f"ms/pair (device-resident uint8 frames, host tail excluded)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    packed_forward(engine, a, b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"engine {label}: peak device memory {peak / 2**20:.1f} MiB in one batch, "
+        f"{(peak - held) / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB held "
+        f"before the call (uint8 frames, engine buffers)")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         packed_forward(engine, a, b)
         torch.cuda.synchronize()
@@ -608,7 +887,29 @@ def phase_profile(folder: str, label: str, **cfg_kw) -> float:
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
         log(f"profile {label}: {e.self_device_time_total / 1e3:8.3f} ms  "
             f"x{e.count:<4d} {e.key[:90]}")
-    return ms / BATCH
+    return {"ms_pair": ms / BATCH, "ms_batch": ms, "peak_bytes": peak,
+            "device_ms": total / 1e3,
+            "kernels": {e.key: e.self_device_time_total / 1e3 for e in events}}
+
+
+def kernel_ms(profile: dict, word: str) -> float:
+    """Device ms of the profile's kernels whose name holds ``word``."""
+    return sum(t for name, t in profile["kernels"].items() if word in name.lower())
+
+
+def check_fused_profile(fused: dict, unfused: dict, label: str) -> None:
+    """No FFT-library kernel in a fused profile, and of the unfused
+    profile's ``roll`` time (``fftshift`` of the maps, and the narrow strips
+    of the flat-wrap pad) only the pad's share."""
+    roll_kernel = "roll_cuda"  # not the "unrolled" elementwise kernels
+    check(kernel_ms(unfused, "fft") > 0.0 and kernel_ms(unfused, roll_kernel) > 0.0,
+          "the unfused profile shows no FFT or no roll kernel")
+    fft, roll = kernel_ms(fused, "fft"), kernel_ms(fused, roll_kernel)
+    log(f"profile {label}: FFT-library kernels {fft:.3f} ms, roll {roll:.3f} ms "
+        f"(unfused: {kernel_ms(unfused, 'fft'):.3f} and "
+        f"{kernel_ms(unfused, roll_kernel):.3f} ms)")
+    check(fft == 0.0, f"{label}: an FFT-library kernel ran")
+    check(roll < 0.1 * kernel_ms(unfused, roll_kernel), f"{label}: fftshift rolls ran")
 
 
 def phase_reference(folder: str, label: str, **cfg_kw) -> None:
@@ -658,21 +959,34 @@ def main() -> int:
         cws_launches, pairs_per_s = phase_main_path(uniform, KERNELS)
         def_launches, def_pairs_per_s = phase_def_path(shear, KERNELS)
         bicubic_launches = phase_bicubic_paths(shear, KERNELS)
+        fused_runs = phase_fused_paths(uniform, shear, KERNELS)
         log(f"paths done at {time.perf_counter() - t_start:.1f} s")
-        engine_ms = phase_profile(uniform, "CWS")
-        log(f"CWS path: engine busy share {engine_ms * pairs_per_s / 1e3:.3f} "
+        cws = phase_profile(uniform, "CWS")
+        log(f"CWS path: engine busy share {cws['ms_pair'] * pairs_per_s / 1e3:.3f} "
             f"(engine ms/pair x pairs/s; the rest is host work the card waits on)")
-        xla_ms = phase_profile(shear, "DEF peakfit=xla", multipass_mode="DEF")
+        for fused, (_, fused_pairs_per_s) in fused_runs.items():
+            prof = phase_profile(uniform, f"CWS fused={fused}", fused=fused)
+            check_fused_profile(prof, cws, f"CWS fused={fused}")
+            log(f"CWS fused={fused}: engine {prof['ms_batch']:.3f} ms per batch "
+                f"(unfused {cws['ms_batch']:.3f}), peak memory "
+                f"{prof['peak_bytes'] / 2**20:.1f} MiB (unfused "
+                f"{cws['peak_bytes'] / 2**20:.1f}), busy share "
+                f"{prof['ms_pair'] * fused_pairs_per_s / 1e3:.3f}")
+        xla_ms = phase_profile(shear, "DEF peakfit=xla", multipass_mode="DEF")["ms_pair"]
         def_ms = phase_profile(shear, "DEF peakfit=pallas", multipass_mode="DEF",
-                               peakfit="pallas")
+                               peakfit="pallas")["ms_pair"]
         log(f"DEF path: engine {def_ms:.3f} ms/pair with peakfit=pallas, "
             f"{xla_ms:.3f} with peakfit=xla; busy share "
             f"{def_ms * def_pairs_per_s / 1e3:.3f}")
         phase_reference(uniform, "CWS")
         phase_reference(shear, "DEF", multipass_mode="DEF", peakfit="pallas")
+        phase_reference(uniform, "CWS fused=split", fused="split")
+        phase_reference(uniform, "CWS fused=on", fused="on")
     # each kernel's launches on the path that runs it
     on_path = {"shift_windows": cws_launches, "shift_windows_bicubic": bicubic_launches,
-               "def_windows": def_launches, "peakfit": def_launches}
+               "def_windows": def_launches, "peakfit": def_launches,
+               "correlate_peakfit": fused_runs["split"][0],
+               "fused_piv_pass": fused_runs["on"][0]}
     for row in rows:
         row["launches"] = on_path[row["name"]][row["name"]]
         check(row["launches"] > 0, f"{row['name']} was not launched on its path")

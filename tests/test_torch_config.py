@@ -1,7 +1,8 @@
 """The port's PIVConfig twin and the static engine state against the JAX
 engine: validation, pass schedules, field shapes, coordinates, window
 origins and spline upsample matrices (exact), the JAX-config conversion,
-a ValueError for every knob that is not ported yet, and the size rules of
+the pass-fusion knob with the combinations both engines refuse, a
+ValueError for every knob that is not ported yet, and the size rules of
 the resampling kernels (the JAX engine falls through to its XLA paths
 there, which the port does not have)."""
 import dataclasses
@@ -31,6 +32,10 @@ SUPPORTED = [
     dict(multipass_mode="DEF", cws_interp="bicubic", def_margin=4),
     dict(cws_interp="bicubic"),
     dict(peakfit="pallas"),
+    dict(fused="split"),
+    dict(fused="on"),
+    dict(fused="split", multipass_mode="DEF", cws_interp="bicubic"),
+    dict(fused="on", multipass_mode="DWS", edge_exact=False),
 ]
 
 
@@ -81,8 +86,6 @@ def test_fields_and_defaults_match_jax_twin():
 
 
 NOT_PORTED = [
-    dict(fused="split"),
-    dict(fused="on"),
     dict(window_weight="gaussian"),
     dict(correlation="rpc"),
     dict(subpixel="gauss2d"),
@@ -144,6 +147,12 @@ def test_windows_at_the_kernel_limits_pass(kw):
 @pytest.mark.parametrize("kw", [
     dict(peakfit="pallas", second_peak_fallback=True),
     dict(peakfit="pallas", subpixel="gauss2d"),
+    dict(fused="on", window_weight="gaussian"),
+    dict(fused="split", correlation="rpc"),
+    dict(fused="on", correlation="rpc"),
+    dict(fused="split", second_peak_fallback=True),
+    dict(fused="on", second_peak_fallback=True),
+    dict(fused="both"),
 ])
 def test_peakfit_kernel_combinations_raise_like_jax(kw):
     with pytest.raises(ValueError):
@@ -180,3 +189,17 @@ def test_from_jax_config_rejects_unknown_fields():
     d["not_a_knob"] = 1
     with pytest.raises(ValueError, match="not_a_knob"):
         from_jax_config(d)
+
+
+@pytest.mark.parametrize("fused", ["split", "on"])
+def test_fused_is_ported(fused):
+    from torchpiv_tpu_torch.config import NOT_PORTED as table
+
+    assert "fused" not in table
+    cfg = PIVConfig(frame_shape=FRAME, fused=fused)
+    assert cfg.fused == fused
+    jcfg = JaxPIVConfig(frame_shape=FRAME, fused=fused)
+    assert from_jax_config(dataclasses.asdict(jcfg)).fused == fused
+    # windows of any size construct: where fusion does not apply the engine
+    # runs the unfused chain
+    assert PIVConfig(frame_shape=FRAME, wind_size=40, overlap=20, fused=fused)

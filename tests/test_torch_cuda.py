@@ -1,7 +1,7 @@
 """The port on an NVIDIA card: each CUDA kernel (bilinear and bicubic window
-shift, window deformation, fused peak fit) against its plain PyTorch
-version, the CUDA engine against the CPU engine, and the kernels' launches
-on the OfflinePIV path.  Every test skips without a CUDA
+shift, window deformation, fused peak fit, correlate-and-fit, whole pass)
+against its plain PyTorch version, the CUDA engine against the CPU engine,
+and the kernels' launches on the OfflinePIV path.  Every test skips without a CUDA
 device.  The file imports neither JAX nor the JAX package, so it also runs
 where JAX is not installed:
 
@@ -12,19 +12,28 @@ fractional bilinear shifts and deformations 1e-4 of a grey level, bicubic
 ones 1e-3 (the kernels round every product and sum in the plain version's
 order, so equality is expected); peak fit ``u, v`` 1e-5 px with equal masks
 (the kernel adds EPS after subtracting the minimum, the plain version
-``EPS - min`` in one step); engines within the port's parity budget (< 2%
-mask mismatch, RMS < 0.01 px)."""
+``EPS - min`` in one step); the correlate-and-fit and whole-pass kernels
+run their own FFT and sum in another order than ``torch.fft``: masks differ
+on at most 0.1% of the windows (one window where there are fewer than
+1000), the integer peak is the same on at least 99.9%, and on jointly valid
+windows ``u, v`` agree within RMS 1e-4 px and 1e-3 px at most; engines
+within the port's parity budget (< 2% mask mismatch, RMS < 0.01 px)."""
 import numpy as np
 import pytest
 import torch
 
 from torchpiv_tpu_torch import MultipassPIV, OfflinePIV, PIVConfig
 from torchpiv_tpu_torch.io.decode import imwrite_gray
+from torchpiv_tpu_torch.kernels.corrfit import correlate_peakfit
 from torchpiv_tpu_torch.kernels.deform import def_windows
+from torchpiv_tpu_torch.kernels.fused_pass import fused_piv_pass
 from torchpiv_tpu_torch.kernels.peakfit import peakfit
 from torchpiv_tpu_torch.kernels.shift import shift_windows, shift_windows_bicubic
+from torchpiv_tpu_torch.ops.corrfit import (correlate_peakfit_reference,
+                                            fused_pass_reference)
 from torchpiv_tpu_torch.ops.correlate import correlate_fft
 from torchpiv_tpu_torch.ops.deform import def_windows_reference
+from torchpiv_tpu_torch.ops.packing import pack_windows
 from torchpiv_tpu_torch.ops.peakfit import correlation_to_displacement
 from torchpiv_tpu_torch.ops.shifts import shift_windows_reference
 from torchpiv_tpu_torch.ops.windows import extract_windows
@@ -182,11 +191,141 @@ def test_peakfit_kernel_exclusion_window(card, window):
     assert torch.equal(ki, pi)
 
 
+def _assert_fit_agrees(got, want):
+    """The stated tolerance of the correlate-and-fit kernels."""
+    (ku, kv, ki), (pu, pv, pi) = got, want
+    n = ku.numel()
+    if ki is None:
+        assert pi is None
+        both = torch.ones_like(ku, dtype=torch.bool)
+    else:
+        assert ki.dtype == torch.bool and ki.shape == ku.shape
+        assert (ki != pi).sum().item() <= max(1, n // 1000)
+        both = ~(ki | pi)
+    du, dv = (ku - pu)[both], (kv - pv)[both]
+    same_cell = (du.abs() < 0.5) & (dv.abs() < 0.5)
+    assert (~same_cell).sum().item() <= max(1, n // 1000)
+    du, dv = du[same_cell], dv[same_cell]
+    assert du.square().mean().sqrt().item() < 1e-4
+    assert dv.square().mean().sqrt().item() < 1e-4
+    assert max(du.abs().max().item(), dv.abs().max().item()) < 1e-3
+
+
+def _window_pairs(card, w, shape=(320, 288)):
+    """``[N, w, w]`` window pairs of a particle pair at 50% overlap."""
+    fa, fb = particle_pair(shape, (1.3, -0.7), seed=w)
+    aa = extract_windows(torch.from_numpy(fa)[None].float().to(card), w, w // 2)[0]
+    bb = extract_windows(torch.from_numpy(fb)[None].float().to(card), w, w // 2)[0]
+    return aa.contiguous(), bb.contiguous()
+
+
+@pytest.mark.parametrize("w", [4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("validate", [False, True])
+@pytest.mark.parametrize("dc_normalize", [False, True])
+def test_corrfit_kernel_matches_plain_version(card, w, validate, dc_normalize):
+    aa, bb = _window_pairs(card, w)
+    if dc_normalize:  # no blank window: sum(a) * sum(b) > 0
+        aa, bb = aa + 1.0, bb + 1.0
+    before = correlate_peakfit.launches
+    got = correlate_peakfit(aa, bb, validate, 1.2, 3, dc_normalize)
+    want = correlate_peakfit_reference(aa, bb, validate, 1.2, 3, dc_normalize)
+    torch.cuda.synchronize()
+    assert correlate_peakfit.launches == before + 1
+    assert got[0].shape == (aa.shape[0],)
+    _assert_fit_agrees(got, want)
+
+
+@pytest.mark.parametrize("bad", [
+    lambda a, b: (a[:, :, :-1], b[:, :, :-1]), lambda a, b: (a, b[:-1]),
+    lambda a, b: (a.double(), b.double()), lambda a, b: (a, b.cpu()),
+    lambda a, b: (a[:, :24, :24], b[:, :24, :24]),  # not a power of two
+])
+def test_corrfit_wrapper_rejects_what_the_kernel_does_not_take(card, bad):
+    aa, bb = _window_pairs(card, 32, shape=(96, 96))
+    with pytest.raises(ValueError):
+        correlate_peakfit(*bad(aa, bb))
+
+
+def _pass_case(card, shape, w, o, kind, batch=2):
+    H, W = shape
+    n = ((H - w) // (w - o) + 1) * ((W - w) // (w - o) + 1)
+    pairs = [particle_pair(shape, (1.3, -0.7), seed=w + i) for i in range(batch)]
+    fa = torch.from_numpy(np.stack([p[0] for p in pairs])).to(card)
+    fb = torch.from_numpy(np.stack([p[1] for p in pairs])).to(card)
+    g = torch.Generator().manual_seed(w)
+    reach = 0.75 * w  # past the +-S = w/2 clamp
+    maps = [torch.rand(batch, n, generator=g) * 2 * reach - reach for _ in range(4)]
+    if kind == "integer":
+        maps = [m.round() for m in maps]
+    elif kind == "zero":
+        maps = [torch.zeros(batch, n) for _ in range(4)]
+    return fa, fb, [m.to(card) for m in maps]
+
+
+@pytest.mark.parametrize("kind", ["fractional", "integer", "zero"])
+@pytest.mark.parametrize("shape,w,o", [((256, 320), 32, 16), ((200, 264), 64, 32),
+                                       ((300, 300), 128, 64), ((96, 120), 16, 8)])
+def test_fused_pass_kernel_matches_plain_version(card, shape, w, o, kind):
+    fa, fb, maps = _pass_case(card, shape, w, o, kind)
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o,
+              dc_normalize=kind == "zero")
+    before = fused_piv_pass.launches, shift_windows.launches
+    got = fused_piv_pass(fa, fb, *maps, **kw)
+    want = fused_pass_reference(fa.float(), fb.float(), *maps, **kw)
+    torch.cuda.synchronize()
+    assert (fused_piv_pass.launches, shift_windows.launches) == \
+        (before[0] + 1, before[1])
+    assert got[0].shape == maps[0].shape
+    _assert_fit_agrees(got, want)
+
+
+@pytest.mark.parametrize("kind", ["fractional", "integer"])
+def test_fused_pass_correlates_the_windows_of_shift_windows(card, kind):
+    """The whole-pass kernel shares its device code with the shift and the
+    correlate-and-fit kernels: its fields equal theirs bit for bit."""
+    shape, w, o = (256, 320), 32, 16
+    fa, fb, maps = _pass_case(card, shape, w, o, kind)
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o)
+    fu, fv, fi = fused_piv_pass(fa, fb, *maps, **kw)
+    aa = shift_windows(fa, maps[0], maps[1], **kw)
+    bb = shift_windows(fb, maps[2], maps[3], **kw)
+    su, sv, si = correlate_peakfit(aa.reshape(-1, w, w), bb.reshape(-1, w, w))
+    assert torch.equal(fu.reshape(-1), su) and torch.equal(fv.reshape(-1), sv)
+    assert torch.equal(fi.reshape(-1), si)
+    one = fused_piv_pass(fa[0], fb[0], *(m[0] for m in maps), validate=False, **kw)
+    assert one[2] is None and torch.equal(one[0], fu[0])
+
+
+@pytest.mark.parametrize("kind", ["integer", "fractional"])
+@pytest.mark.parametrize("shape,w,o", [((128, 112), 32, 16), ((200, 264), 64, 32),
+                                       ((64, 72), 8, 4), ((300, 300), 128, 64)])
+def test_packed_shift_equals_pack_of_the_standard_output(card, shape, w, o, kind):
+    H, W = shape
+    n_rows, n_cols = (H - w) // (w - o) + 1, (W - w) // (w - o) + 1
+    g = torch.Generator().manual_seed(w)
+    frames = (torch.rand(2, H, W, generator=g) * 255).to(card)
+    vx = torch.rand(2, n_rows * n_cols, generator=g) * 3 * w - 1.5 * w
+    vy = torch.rand(2, n_rows * n_cols, generator=g) * 3 * w - 1.5 * w
+    if kind == "integer":
+        vx, vy = vx.round(), vy.round()
+    vx, vy = vx.to(card), vy.to(card)
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o)
+    got = shift_windows(frames, vx, vy, packed=True, **kw)
+    want = pack_windows(shift_windows(frames, vx, vy, **kw), n_rows, n_cols, w)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert torch.equal(shift_windows(frames[0], vx[0], vy[0], packed=True, **kw), got[0])
+
+
 @pytest.mark.parametrize("kw", [
     dict(multipass_mode="CWS"), dict(multipass_mode="DWS"),
     dict(multipass_mode="DEF"), dict(multipass_mode="DEF", cws_interp="bicubic"),
     dict(multipass_mode="CWS", cws_interp="bicubic"),
     dict(multipass_mode="DEF", peakfit="pallas"),
+    dict(multipass_mode="CWS", fused="split"), dict(multipass_mode="DWS", fused="split"),
+    dict(multipass_mode="DEF", fused="split"),
+    dict(multipass_mode="CWS", fused="split", cws_interp="bicubic"),
+    dict(multipass_mode="CWS", fused="on"), dict(multipass_mode="DWS", fused="on"),
 ], ids=lambda kw: "-".join(kw.values()))
 def test_cuda_engine_matches_cpu_engine(card, kw):
     flow = shear_flow(1.0, 0.01) if kw["multipass_mode"] == "DEF" else (3.3, -2.1)
@@ -227,6 +366,33 @@ def test_offline_piv_def_path_launches_its_kernels(card, tmp_path):
     # 2 batches x (2 frames; 2 passes)
     assert (def_windows.launches, peakfit.launches, shift_windows.launches) == \
         (before[0] + 4, before[1] + 4, before[2])
+
+
+@pytest.mark.parametrize("fused,mode,want", [
+    # 2 batches; per batch: one launch a pass, or one shift launch a frame
+    ("split", "CWS", dict(correlate_peakfit=4, shift_windows=4)),
+    ("split", "DEF", dict(correlate_peakfit=4, def_windows=4)),
+    ("on", "CWS", dict(fused_piv_pass=4)),
+    ("on", "DWS", dict(fused_piv_pass=4)),
+    ("on", "DEF", dict(fused_piv_pass=2, def_windows=4)),  # only pass 1 fuses
+])
+def test_offline_piv_fused_paths_launch_their_kernels(card, tmp_path, fused, mode, want):
+    from torchpiv_tpu_torch.kernels import KERNELS
+
+    for i in range(3):
+        fa, fb = particle_pair((256, 256), (3.3, -2.1), seed=i)
+        imwrite_gray(str(tmp_path / f"p{i}_a.bmp"), fa)
+        imwrite_gray(str(tmp_path / f"p{i}_b.bmp"), fb)
+    piv = OfflinePIV(str(tmp_path), multipass=2, multipass_mode=mode, batch_size=2,
+                     engine_options={"fused": fused})
+    before = {k.__name__: k.launches for k in KERNELS}
+    fields = list(piv())
+    assert len(fields) == 3
+    got = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
+    assert got == {**dict.fromkeys(got, 0), **want}
+    for _, _, u, v in fields:
+        assert abs(np.median(u) / 1000 - 3.3) < 0.1
+        assert abs(-np.median(v) / 1000 + 2.1) < 0.1
 
 
 def test_tf32_on_is_refused(card, monkeypatch):

@@ -142,6 +142,20 @@ def test_batch_axis_equals_per_pair_runs():
         assert torch.equal(inval, bi[i])
 
 
+@pytest.mark.parametrize("fused", ["split", "on"])
+def test_fused_modes_recover_the_displacement_and_count_no_launch_on_cpu(fused):
+    from torchpiv_tpu_torch.kernels import KERNELS
+
+    fa, fb = particle_pair(SHAPE, (3.3, -2.1), seed=7)
+    before = [k.launches for k in KERNELS]
+    u, v, inval = _run_port(dict(frame_shape=SHAPE, wind_size=64, overlap=32,
+                                 multipass=2, fused=fused), fa, fb)
+    assert [k.launches for k in KERNELS] == before
+    assert inval.mean() < 0.05
+    assert abs(u[2:-2, 2:-2].mean() - 3.3) < 0.05
+    assert abs(v[2:-2, 2:-2].mean() + 2.1) < 0.05
+
+
 def test_validate_false_gives_no_invalid_field():
     fa, fb = particle_pair((128, 128), (2.0, 1.0), seed=4)
     eng = MultipassPIV(PIVConfig(frame_shape=(128, 128), wind_size=32, overlap=16,

@@ -41,6 +41,9 @@ def _write_pairs(folder, n, holes=True):
     # (x - min) + EPS and the XLA fit's x + (EPS - min), which the port's CPU
     # path follows, validate differently (in the JAX package too).
     ("DEF", {"peakfit": "pallas", "cws_interp": "bicubic"}, False),
+    # the pass-fusion kernels fit in the same order: no corner either
+    ("CWS", {"fused": "split"}, False),
+    ("CWS", {"fused": "on"}, False),
 ])
 def test_offline_piv_matches_jax_offline_piv(tmp_path, mode, options, holes):
     _write_pairs(tmp_path, 3, holes=holes)
@@ -58,6 +61,27 @@ def test_offline_piv_matches_jax_offline_piv(tmp_path, mode, options, holes):
         np.testing.assert_array_equal(oy, ry)
         for a, b in ((ou, ru), (ov, rv)):
             d = np.abs(np.asarray(a) - np.asarray(b)) / unit
+            assert np.isfinite(a).all()
+            assert np.sqrt(np.mean(d ** 2)) < 0.01
+            assert (d > 0.01).mean() < 0.02
+
+
+@pytest.mark.parametrize("fused,mode", [("split", "CWS"), ("split", "DEF"),
+                                        ("on", "CWS"), ("on", "DWS")])
+def test_offline_piv_fused_modes_match_the_unfused_port(tmp_path, fused, mode):
+    _write_pairs(tmp_path, 3, holes=False)
+    kw = dict(device="cpu", batch_size=2, wind_size=64, overlap=32, multipass=2,
+              multipass_mode=mode)
+    piv = OfflinePIV(str(tmp_path), engine_options={"fused": fused}, **kw)
+    assert piv.engine.config.fused == fused
+    assert piv.engine._use_split() == (fused == "split")
+    assert piv.engine._use_fused() == (fused == "on")
+    got = list(piv())
+    want = list(OfflinePIV(str(tmp_path), **kw)())
+    assert len(got) == len(want) == 3
+    for (_, _, ou, ov), (_, _, ru, rv) in zip(got, want):
+        for a, b in ((ou, ru), (ov, rv)):
+            d = np.abs(a - b) / 1000  # px
             assert np.isfinite(a).all()
             assert np.sqrt(np.mean(d ** 2)) < 0.01
             assert (d > 0.01).mean() < 0.02

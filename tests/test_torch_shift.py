@@ -151,9 +151,11 @@ def test_wrapper_rejects_wrong_map_shape():
 
 
 def test_kernel_sources_are_in_the_package():
-    names = ["def_windows", "peakfit", "shift_windows", "shift_windows_bicubic"]
+    names = ["corrfit", "def_windows", "fused_pass", "peakfit", "shift_windows",
+             "shift_windows_bicubic"]
     assert _build.sources() == names
-    assert sorted(k.__name__ for k in KERNELS) == names
+    wrappers = {"correlate_peakfit": "corrfit", "fused_piv_pass": "fused_pass"}
+    assert sorted(wrappers.get(k.__name__, k.__name__) for k in KERNELS) == names
     assert all(isinstance(k.launches, int) for k in KERNELS)
     for name in names:
         target = _build._target(name)

@@ -7,13 +7,16 @@ converts one to one (``from_dict``).
 Knobs whose only effect is a TPU lowering are accepted and do nothing here:
 ``use_pallas``, ``pallas_interpret``, ``shift_variant``, ``shift_maps``,
 ``extract_variant``, ``complex_mm``, ``correlator`` and ``dft_precision``.
-The port always correlates in float32 through ``torch.fft`` and always
-resamples windows with its CUDA kernels (their plain versions on the CPU):
+The port always correlates in float32, through ``torch.fft`` or inside its
+pass-fusion kernels, and always resamples windows with its CUDA kernels (their plain versions on the CPU):
 the JAX engine's XLA shift and dense-gather DEF paths, which have other
 semantics (per-pixel absolute coordinates, no residual saturation), are not
 ported, so window sizes beyond the kernels' limits raise ``ValueError``.
 ``peakfit="pallas"`` selects the fused CUDA peak-fit kernel; ``"xla"`` (the
-default) the chain of torch ops.
+default) the chain of torch ops.  ``fused="split"`` runs correlation and
+peak fit of every pass in one CUDA kernel, ``fused="on"`` the whole pass
+(window shift included); where the JAX engine would silently run its unfused
+chain (see ``MultipassPIV``) the port does too.
 
 Knobs that the port does not implement yet raise ``ValueError`` naming the
 knob (``NOT_PORTED``).
@@ -35,7 +38,6 @@ def def_tile(wind_size: int, margin: int, interp: str) -> int:
 
 # knob -> predicate on its value that is true when the value is not ported
 NOT_PORTED = {
-    "fused": lambda v: v in ("split", "on"),
     "window_weight": lambda v: v is not None,
     "correlation": lambda v: v == "rpc",
     "subpixel": lambda v: v == "gauss2d",
@@ -76,7 +78,7 @@ class PIVConfig:
     subpixel: str = "gauss3"  # "gauss3" ("gauss2d" not ported)
     dft_precision: str = "high"  # TPU lowering only: always f32 torch.fft
     complex_mm: str = "real"  # TPU lowering only: no effect
-    fused: str = "auto"  # "auto" | "off" ("split", "on" not ported)
+    fused: str = "auto"  # "auto" | "off" | "split" | "on" (pass fusion)
     median_filter: Optional[str] = None  # not ported
     median_threshold: float = 2.0
     u_limits: Optional[Tuple[float, float]] = None  # not ported

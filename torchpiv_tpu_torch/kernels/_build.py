@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles at first use into a shared library with a
 plain C interface, under ``torchpiv_tpu_torch/_build/``.  The library's file
-name carries a hash of its source and flags, so an edited source builds
-anew and an unchanged one loads from disk.  Only sources of this package are
-built; nothing is fetched.
+name carries a hash of its source, of every shared header (``csrc/*.cuh``)
+and of the flags, so an edited source or header builds anew and an
+unchanged one loads from disk.  Only sources of this package are built;
+nothing is fetched.
 """
 from __future__ import annotations
 
@@ -42,6 +43,9 @@ def _target(name: str) -> Path:
     if not src.is_file():
         raise FileNotFoundError(f"no kernel source {src}")
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include any header
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -24,14 +24,17 @@
 // four blocks; the L2 cache (50 MB) holds the 17 MB frame and absorbs that.
 // Making the tile loads asynchronous (cp.async / TMA rings) is later work.
 //
-// Numerics: the weights and the blend use explicitly rounded
-// multiplications and additions (__fmul_rn / __fadd_rn / __fsub_rn), in
-// the TPU kernel's term order, so no multiply-add is contracted and the
-// result matches the plain PyTorch version to the last bit.  Integer
-// shifts copy tile values and are bit-exact by construction.
+// With `packed` the windows go out in the lane-packed layout of the TPU
+// pass-fusion kernels instead: window c of row r at out[r, :, c*w:(c+1)*w]
+// of a [n_rows, w, Lp] tensor, Lp = n_cols_pad * w, the columns past n_cols
+// repeating the last window.  The port's own kernels read [N, w, w]; the
+// layout exists to be held against the JAX functions that speak it.
+//
+// The tile staging and the blend, with their numerics, are in shift.cuh,
+// shared with fused_pass.cu: the result matches the plain PyTorch version
+// to the last bit, and integer shifts copy tile values.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "shift.cuh"
 
 namespace {
 
@@ -45,7 +48,7 @@ shift_windows_kernel(const float* __restrict__ frame,
                      const float* __restrict__ fx,
                      float* __restrict__ out,
                      int Hp, int Wp, int n_cols, int n_win,
-                     int w, int step, int off) {
+                     int w, int step, int off, int packed, int n_cols_pad) {
   extern __shared__ float tile[];
   const int n = blockIdx.x;  // window, row-major over the grid
   const int b = blockIdx.y;  // frame of the batch
@@ -54,41 +57,29 @@ shift_windows_kernel(const float* __restrict__ frame,
   const int r = n / n_cols;
   const int c = n - r * n_cols;
 
-  int ty = r * step + off + dy[wi];
-  int tx = c * step + off + dx[wi];
-  ty = min(max(ty, 0), Hp - T);
-  tx = min(max(tx, 0), Wp - T);
-  const float* src = frame + (int64_t)b * Hp * Wp + (int64_t)ty * Wp + tx;
-  for (int i = threadIdx.x; i < T * T; i += blockDim.x) {
-    const int ri = i / T;
-    tile[i] = src[(int64_t)ri * Wp + (i - ri * T)];
-  }
+  piv::stage_tile(frame + (int64_t)b * Hp * Wp, Hp, Wp,
+                  r * step + off + dy[wi], c * step + off + dx[wi], T, tile);
   __syncthreads();
 
-  const float fyv = fy[wi];
-  const float fxv = fx[wi];
-  float* dst = out + wi * w * w;
-  if (fyv == 0.0f || fxv == 0.0f) {
+  const piv::Blend blend = piv::blend_weights(fy[wi], fx[wi]);
+  if (!packed) {
+    float* dst = out + wi * w * w;
     for (int i = threadIdx.x; i < w * w; i += blockDim.x) {
       const int ri = i / w;
-      dst[i] = tile[ri * T + (i - ri * w)];
+      dst[i] = piv::blend_pixel(tile + ri * T + (i - ri * w), T, blend);
     }
     return;
   }
-  const float gx = __fsub_rn(1.0f, fxv);
-  const float gy = __fsub_rn(1.0f, fyv);
-  const float w11 = __fmul_rn(gx, gy);
-  const float w21 = __fmul_rn(fxv, gy);
-  const float w12 = __fmul_rn(gx, fyv);
-  const float w22 = __fmul_rn(fxv, fyv);
+  const int64_t Lp = (int64_t)n_cols_pad * w;
+  const int n_rows = n_win / n_cols;
+  // the last window of a row also fills the row's tail columns
+  const int copies = c == n_cols - 1 ? n_cols_pad - n_cols + 1 : 1;
+  float* dst = out + ((int64_t)b * n_rows + r) * w * Lp + (int64_t)c * w;
   for (int i = threadIdx.x; i < w * w; i += blockDim.x) {
     const int ri = i / w;
-    const float* t = tile + ri * T + (i - ri * w);
-    float acc = __fmul_rn(t[0], w11);
-    acc = __fadd_rn(acc, __fmul_rn(t[1], w21));
-    acc = __fadd_rn(acc, __fmul_rn(t[T], w12));
-    acc = __fadd_rn(acc, __fmul_rn(t[T + 1], w22));
-    dst[i] = acc;
+    const int ci = i - ri * w;
+    const float val = piv::blend_pixel(tile + ri * T + ci, T, blend);
+    for (int k = 0; k < copies; ++k) dst[ri * Lp + k * w + ci] = val;
   }
 }
 
@@ -97,12 +88,14 @@ shift_windows_kernel(const float* __restrict__ frame,
 extern "C" {
 
 // frame: [B, Hp, Wp] f32; dy, dx: [B, N] i32; fy, fx: [B, N] f32;
-// out: [B, N, w, w] f32 with N = n_rows * n_cols.  Launches on `stream`
-// and returns cudaGetLastError() of the launch (0 on success).
+// out: [B, N, w, w] f32 with N = n_rows * n_cols, or with `packed`
+// [B, n_rows, w, n_cols_pad * w].  Launches on `stream` and returns
+// cudaGetLastError() of the launch (0 on success).
 int shift_windows_f32(const float* frame, const int* dy, const int* dx,
                       const float* fy, const float* fx, float* out,
                       int B, int Hp, int Wp, int n_rows, int n_cols,
-                      int w, int step, int off, void* stream) {
+                      int w, int step, int off, int packed, int n_cols_pad,
+                      void* stream) {
   const size_t smem = (size_t)(w + 1) * (w + 1) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -113,7 +106,8 @@ int shift_windows_f32(const float* frame, const int* dy, const int* dx,
   const int n_win = n_rows * n_cols;
   dim3 grid(n_win, B);
   shift_windows_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      frame, dy, dx, fy, fx, out, Hp, Wp, n_cols, n_win, w, step, off);
+      frame, dy, dx, fy, fx, out, Hp, Wp, n_cols, n_win, w, step, off, packed,
+      n_cols_pad);
   return (int)cudaGetLastError();
 }
 

@@ -26,6 +26,21 @@ Pass semantics are the JAX engine's:
 ``peakfit="pallas"`` runs the fused peak-fit kernel instead of the chain of
 torch ops (``"xla"``, the default); both give the same fields.
 
+Pass fusion (``fused``), with the JAX engine's rules:
+
+* ``"split"``: every pass correlates and fits in one kernel
+  (``kernels.corrfit``), so no correlation map reaches device memory.  It
+  applies when ``subpixel == "gauss3"`` and every pass window is a power of
+  two in 4..128; the windows come from ``extract_windows`` (pass 1), the
+  shift kernels (CWS, DWS) or the deformation kernel (DEF).
+* ``"on"``: CWS and DWS passes, and pass 1 with zero shifts, run whole in
+  one kernel (``kernels.fused_pass``): neither windows nor maps reach device
+  memory.  It applies with ``edge_exact``, bilinear resampling and
+  ``subpixel == "gauss3"``, and, in the port, power-of-two windows; DEF
+  ignores it.
+* Where a mode does not apply the engine runs the unfused chain and does
+  not raise, as the JAX engine does.
+
 The static operators (spline upsample matrices ``Ay``/``Ax`` between pass
 grids, per-pass window origins) are registered buffers.  The predictor
 matmuls run in full float32: on a CUDA device the engine raises if TF32 is
@@ -40,9 +55,12 @@ import torch
 from torch import nn
 
 from ..config import PIVConfig
+from ..kernels.corrfit import correlate_peakfit
 from ..kernels.deform import def_windows
+from ..kernels.fused_pass import fused_piv_pass
 from ..kernels.peakfit import peakfit
 from ..kernels.shift import shift_windows
+from ..ops.corrfit import corrfit_supported
 from ..ops.correlate import correlate_fft
 from ..ops.geometry import get_coordinates, get_field_shape, per_window_origins
 from ..ops.peakfit import correlation_to_displacement
@@ -116,16 +134,64 @@ class MultipassPIV(nn.Module):
         return fit(corr.reshape(-1, *corr.shape[-2:]), validate, cfg.val_ratio,
                    cfg.validation_window, min_subtract=True)
 
+    def _fusable_windows(self) -> bool:
+        """Every pass window is one the pass-fusion kernels take."""
+        return all(corrfit_supported(w) for w, _ in self.schedule)
+
+    def _use_fused(self) -> bool:
+        """``fused="on"`` applies (CWS and DWS passes and pass 1)."""
+        cfg = self.config
+        return (cfg.fused == "on" and cfg.edge_exact
+                and cfg.window_weight is None and cfg.cws_interp == "bilinear"
+                and cfg.subpixel == "gauss3" and self._fusable_windows())
+
+    def _use_split(self) -> bool:
+        """``fused="split"`` applies (every pass)."""
+        cfg = self.config
+        return (cfg.fused == "split" and cfg.window_weight is None
+                and cfg.subpixel == "gauss3" and self._fusable_windows())
+
+    def _corrfit(self, aa, bb, dc_normalize=False):
+        """Windows ``[B, N, w, w]`` -> flat ``(u, v, invalid)`` through the
+        correlate-and-fit kernel."""
+        cfg = self.config
+        w = aa.shape[-1]
+        return correlate_peakfit(aa.reshape(-1, w, w), bb.reshape(-1, w, w),
+                                 cfg.validate, cfg.val_ratio,
+                                 cfg.validation_window, dc_normalize)
+
+    def _fused_pass(self, p, frame_a, frame_b, vxa, vya, vxb, vyb,
+                    dc_normalize=False):
+        """Pass ``p`` whole through the fused kernel, ``[B, N]`` shifts."""
+        cfg = self.config
+        w, o = self.schedule[p]
+        return fused_piv_pass(
+            frame_a, frame_b, vxa, vya, vxb, vyb, frame_shape=cfg.frame_shape,
+            wind_size=w, overlap=o, validate=cfg.validate,
+            val_ratio=cfg.val_ratio, validation_window=cfg.validation_window,
+            max_shift=cfg.max_shift, dc_normalize=dc_normalize)
+
     def first_pass(self, frame_a: torch.Tensor, frame_b: torch.Tensor):
         """Zero-order pass on float32 ``[B, H, W]`` frames."""
         cfg = self.config
         w, o = self.schedule[0]
         B = frame_a.shape[0]
-        aa = extract_windows(frame_a, w, o)
-        bb = extract_windows(frame_b, w, o)
-        # mean normalisation folded into the spectrum product
-        corr = correlate_fft(aa, bb, dc_normalize=True)
-        u, v, inval = self._peakfit(corr, cfg.validate)
+        if self._use_fused():
+            # zero shifts: plain extraction; the mean normalisation scales
+            # the map inside the kernel
+            z = torch.zeros((B, self.field_shapes[0][0] * self.field_shapes[0][1]),
+                            dtype=torch.float32, device=frame_a.device)
+            u, v, inval = self._fused_pass(0, frame_a, frame_b, z, z, z, z,
+                                           dc_normalize=True)
+        else:
+            aa = extract_windows(frame_a, w, o)
+            bb = extract_windows(frame_b, w, o)
+            if self._use_split():
+                u, v, inval = self._corrfit(aa, bb, dc_normalize=True)
+            else:
+                # mean normalisation folded into the spectrum product
+                corr = correlate_fft(aa, bb, dc_normalize=True)
+                u, v, inval = self._peakfit(corr, cfg.validate)
         shape = (B, *self.field_shapes[0])
         return (u.reshape(shape), v.reshape(shape),
                 None if inval is None else inval.reshape(shape))
@@ -161,7 +227,12 @@ class MultipassPIV(nn.Module):
             u2 = torch.round(u0 / 2.0)  # integer shifts: a pure tile copy
             v2 = torch.round(v0 / 2.0)
         sx, sy = u2.reshape(B, -1), v2.reshape(B, -1)
-        if cfg.multipass_mode == "DEF":
+        fused_result = None
+        if cfg.multipass_mode != "DEF" and self._use_fused():
+            # DWS shifts are integer-valued: the kernel's blend degenerates
+            # to the floor corner, the integer tile copy
+            fused_result = self._fused_pass(p, frame_a, frame_b, -sx, -sy, sx, sy)
+        elif cfg.multipass_mode == "DEF":
             # locally linearised displacement: the half-shift plus its
             # gradient across the window, symmetric between the frames
             step = float(w - o)
@@ -177,8 +248,13 @@ class MultipassPIV(nn.Module):
             aa = shift_windows(frame_a, -sx, -sy, **kw)
             bb = shift_windows(frame_b, sx, sy, **kw)
 
-        corr = correlate_fft(aa, bb)
-        du, dv, new_inval = self._peakfit(corr, cfg.validate)
+        if fused_result is not None:
+            du, dv, new_inval = fused_result
+        elif self._use_split():
+            du, dv, new_inval = self._corrfit(aa, bb)
+        else:
+            corr = correlate_fft(aa, bb)
+            du, dv, new_inval = self._peakfit(corr, cfg.validate)
         shape = (B, *self.field_shapes[p])
         du = du.reshape(shape)
         dv = dv.reshape(shape)

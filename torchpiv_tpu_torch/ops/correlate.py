@@ -1,8 +1,9 @@
 """FFT cross-correlation of window batches (counterpart of
 ``torchpiv_tpu/ops/correlate.py``).
 
-The port always correlates in float32 through ``torch.fft`` (cuFFT on the
-card); the TPU's matmul DFT has no counterpart here.
+The unfused chain always correlates in float32 through ``torch.fft`` (cuFFT
+on the card); the TPU's matmul DFT has no counterpart here.  The pass-fusion
+kernels (``kernels/corrfit.py``, ``kernels/fused_pass.py``) run their own FFT.
 """
 from __future__ import annotations
 
