@@ -8,14 +8,17 @@ Phases, each failing loudly:
 1. environment: torch/CUDA versions, the card's name and power limit, TF32
    off;
 2. build every CUDA kernel of the package from its sources;
-3. each kernel (bilinear and bicubic window shift, window deformation,
-   fused peak fit, correlate-and-fit, whole pass) against its plain PyTorch
+3. each kernel (bilinear and bicubic window shift, the four bilinear shift
+   variants, window deformation, fused peak fit, correlate-and-fit, whole
+   pass) against its plain PyTorch
    version on the card, at the main paths' shapes (2048x2048 frames, pass 2:
    w32/o16, a batch of 4; the fits at pass 1, w64/o32, too), with times:
    kernel, plain version, bound, and a yardstick that computes the same
    function where there is one (``grid_sample`` bilinear; for the two
    pass-fusion kernels the port's own unfused chain); the packed output of
-   the window shift against the repacked standard output;
+   the window shift against the repacked standard output; every shift
+   variant also against the ``rolls`` kernel (bit-equal on 8-bit frames)
+   and on a float-valued frame, where the bfloat16 variants must differ;
 4. the first path: ``OfflinePIV`` over 8 synthetic 2048x2048 BMP pairs with
    a uniform displacement, 64 px windows, 32 px overlap, 2-pass CWS; checks
    the recovered displacement, the valid share and the kernel launch
@@ -27,13 +30,20 @@ Phases, each failing loudly:
 6. the pass-fusion paths: ``OfflinePIV`` over the 8 uniform pairs with
    ``fused="split"`` and with ``fused="on"`` (displacement, valid share and
    exact launch counts), and one batch of ``fused="split"`` + DEF over the
-   sheared pairs;
+   sheared pairs; the shift-variant paths: the 8 uniform pairs with
+   ``shift_variant="bf16"``, one batch each of the other three variants and
+   one of ``fused="split"`` + ``"bf16"``, fields equal to the ``rolls``
+   runs' bit for bit; the robust path: 8 uniform pairs with corrupted
+   patches and a region-of-interest mask, ``shift_variant="phases"``, the
+   median filter, velocity limits, the global sigma test and the
+   second-peak fallback, then one batch each of RPC + Gaussian window
+   weights, the gauss2d fit and ``infill="fused"``;
 7. the engine's time per batch, its device time by kernel and its peak
    device memory: CWS unfused, ``split`` and ``on`` (no FFT-library kernel
-   and no ``fftshift`` roll may appear in the fused profiles), and DEF with
-   both peak fits;
+   and no ``fftshift`` roll may appear in the fused profiles), DEF with
+   both peak fits, the robust configuration and ``infill="fused"``;
 8. the CUDA engine against the CPU engine (plain versions) on one full-size
-   pair: CWS, DEF, ``split`` and ``on``.
+   pair: CWS, DEF, ``split``, ``on`` and the robust configuration.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -53,12 +63,19 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
+H100_BF16_FLOPS = 989e12  # bfloat16 on the tensor cores, dense
 DISPLACEMENT = (3.3, -2.1)  # px, +x right, +y down (the CWS path)
 SHEAR = (1.0, 0.004)  # u = 1 + 0.004 y px, v = 0 (the DEF path)
 FRAME = (2048, 2048)
 N_PAIRS = 8  # uniform pairs, the CWS path
 N_SHEAR_PAIRS = 8  # sheared pairs, the DEF path
 BATCH = 4
+N_PATCHES = 6  # corrupted patches a frame, the robust path
+PATCH = 48  # their side in px
+WALL = 256  # columns that the robust path's mask excludes, from the left
+ROBUST = dict(median_filter="normmedian", u_limits=(-8.0, 8.0),
+              v_limits=(-8.0, 8.0), global_std=5.0, second_peak_fallback=True)
+VARIANT_LINES = {"bf16": 29, "lanephases": 111, "mxu": 195, "phases": 294}
 CSRC = "torchpiv_tpu_torch/kernels/csrc/"
 
 
@@ -122,18 +139,19 @@ def shift_grid(ops, w: int) -> torch.Tensor:
     return torch.stack([gx, gy], dim=-1).reshape(B, -1, w, 2)
 
 
-def roofline(n_bytes: float, n_flops: float):
+def roofline(n_bytes: float, n_flops: float, n_bf16_flops: float = 0.0):
     """``(bound_ms, bound_by)``: the larger of bytes over the memory rate
-    and operations over the float32 rate."""
+    and operations over the rate of their type (float32 outside the tensor
+    cores, bfloat16 products on them)."""
     t_bytes = n_bytes / H100_BYTES_PER_S
-    t_flops = n_flops / H100_F32_FLOPS
+    t_flops = n_flops / H100_F32_FLOPS + n_bf16_flops / H100_BF16_FLOPS
     return (max(t_bytes, t_flops) * 1e3,
             "bytes" if t_bytes >= t_flops else "operations")
 
 
 def kernel_row(name, source, replaces, max_err, ms, plain_ms, n_bytes, n_flops,
-               library_ms, **extra) -> dict:
-    bound_ms, bound_by = roofline(n_bytes, n_flops)
+               library_ms, n_bf16_flops=0.0, **extra) -> dict:
+    bound_ms, bound_by = roofline(n_bytes, n_flops, n_bf16_flops)
     row = {"name": name, "route": "cuda", "source": CSRC + source,
            "replaces": replaces, "launches": None, "max_abs_err": max_err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -230,6 +248,105 @@ def phase_shift_kernels(frames: torch.Tensor) -> list:
             "torchpiv_tpu/kernels/shift_pallas.py:" + ("44" if interp == "bilinear" else "166"),
             max_err, ms, plain_ms, n_bytes, n_flops, library_ms,
             wrapper_ms=wrapper_ms, shape=[B, Hp, Wp, n, w]))
+    return rows
+
+
+def phase_shift_variants(frames: torch.Tensor) -> list:
+    """The four bilinear shift variants against their plain versions and the
+    ``rolls`` kernel at the pass-2 shape; times beside ``rolls`` and
+    ``grid_sample`` in the same run."""
+    from torchpiv_tpu_torch.kernels.shift import (VARIANT_WRAPPERS, launch,
+                                                  launch_variant, shift_windows,
+                                                  variant_frame)
+    from torchpiv_tpu_torch.ops.shifts import (BF16_VARIANTS,
+                                               blend_reference_variant,
+                                               shift_operands)
+
+    w, o, S = 32, 16, 16
+    n = window_count(w, o)
+    dev = frames.device
+    kw = dict(frame_shape=FRAME, wind_size=w, overlap=o)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    cases = {k: tuple(t.to(dev) for t in v) for k, v in shift_cases(n, g).items()}
+    # grey levels that are not exact in bfloat16
+    float_frames = frames * 0.731 + 0.37
+    rolls = {case: shift_windows(frames, vx, vy, **kw) for case, (vx, vy) in cases.items()}
+    vx, vy = cases["fractional"]
+    ops = shift_operands(frames, vx, vy, **kw)
+    rolls_ms = cuda_ms(lambda: launch(ops, w))
+    grid = shift_grid(ops, w)
+    img = ops.frame[:, None]
+    library_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(
+        img, grid, mode="bilinear", padding_mode="border", align_corners=True))
+    del grid, img
+    B, Hp, Wp = ops.frame.shape
+    rows = []
+    for variant in sorted(VARIANT_WRAPPERS):
+        name = f"shift_windows_{variant}"
+        rounds = variant in BF16_VARIANTS
+        max_err = 0.0
+        for case, (cx, cy) in cases.items():
+            got = shift_windows(frames, cx, cy, variant=variant, **kw)
+            want = blend_reference_variant(shift_operands(frames, cx, cy, **kw), w, variant)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            max_err = max(max_err, err)
+            log(f"{name} {case}: max |kernel - plain| = {err!r}")
+            # the blend rounds every product and sum in the plain version's
+            # order: nothing is allowed, fractional shifts included
+            check(torch.equal(got, want), f"{name} {case} must be bit-exact")
+            # 8-bit grey levels are exact in bfloat16: the rolls kernel's output
+            check(torch.equal(got, rolls[case]), f"{name} {case} != shift_windows")
+            del got, want
+        got = shift_windows(float_frames, vx, vy, variant=variant, **kw)
+        fops = shift_operands(float_frames, vx, vy, **kw)
+        want = blend_reference_variant(fops, w, variant)
+        plain_rolls = shift_windows(float_frames, vx, vy, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        max_err = max(max_err, err)
+        moved = (got - plain_rolls).abs().max().item()
+        log(f"{name} float-valued frame: max |kernel - plain| = {err!r}, "
+            f"max |kernel - shift_windows| = {moved!r}")
+        check(torch.equal(got, want), f"{name} float-valued frame must be bit-exact")
+        check((moved > 0.0) == rounds,
+              f"{name}: the bfloat16 rounding of the frame shows as {moved}")
+        del got, want, plain_rolls, fops
+
+        vframe = variant_frame(ops, variant)
+        ms = cuda_ms(lambda: launch_variant(ops, w, variant, S, frame=vframe))
+        cast_ms = cuda_ms(lambda: variant_frame(ops, variant))
+        wrapper_ms = cuda_ms(lambda: shift_windows(frames, vx, vy, variant=variant, **kw))
+        plain_ms = cuda_ms(lambda: blend_reference_variant(ops, w, variant), reps=5)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        shift_windows(frames, vx, vy, variant=variant, **kw)
+        torch.cuda.synchronize()
+        extra = dict(wrapper_ms=wrapper_ms, frame_prepare_ms=cast_ms,
+                     shift_windows_ms=rolls_ms,
+                     peak_bytes_above_inputs=torch.cuda.max_memory_allocated() - held,
+                     shape=[B, Hp, Wp, n, w])
+        if variant == "phases":
+            extra["prologue_ms"] = cuda_ms(
+                lambda: launch_variant(ops, w, variant, S, frame=vframe, stages=1))
+            extra["shift_from_table_ms"] = cuda_ms(
+                lambda: launch_variant(ops, w, variant, S, frame=vframe, stages=2))
+            # the timing launches above are no launches of the whole kernel
+        # each input read once, each output written once: the frame in the
+        # type the kernel reads, four maps, the windows; the phase table is
+        # the design's own traffic and not part of the bound
+        n_bytes = B * (Hp * Wp * (2 if rounds else 4) + n * 4 * 4 + n * w * w * 4)
+        n_flops = B * n * w * w * 7
+        n_bf16 = 0.0
+        if variant == "mxu":  # two banded selection products a window
+            Tp, KP = -(-(w + 1) // 16) * 16, -(-(w + 8) // 16) * 16
+            n_bf16 = B * n * 2.0 * 2 * 16 * (KP + Tp) * Tp
+        rows.append(kernel_row(
+            name, f"{name}.cu",
+            f"torchpiv_tpu/experimental/shift_variants.py:{VARIANT_LINES[variant]}",
+            max_err, ms, plain_ms, n_bytes, n_flops, library_ms,
+            n_bf16_flops=n_bf16, **extra))
     return rows
 
 
@@ -638,6 +755,7 @@ def phase_kernels(folder: str) -> list:
     frames_a = torch.from_numpy(a).cuda().float()
     frames_b = torch.from_numpy(b).cuda().float()
     rows = phase_shift_kernels(frames_a)
+    rows += phase_shift_variants(frames_a)
     rows.append(phase_def_kernel(frames_a))
     rows.append(phase_peakfit_kernel(frames_a, frames_b))
     rows.append(phase_corrfit_kernel(frames_a, frames_b))
@@ -694,8 +812,8 @@ UNIT = 1000.0  # px -> output units: scale / dt * 1000, defaults 1 and 1
 
 
 def phase_main_path(folder: str, kernels):
-    """OfflinePIV at 4 MP, w64/o32, 2-pass CWS; returns the launch counts
-    and pairs/s."""
+    """OfflinePIV at 4 MP, w64/o32, 2-pass CWS; returns the launch counts,
+    pairs/s and the fields."""
     from torchpiv_tpu_torch import OfflinePIV
 
     piv = OfflinePIV(folder, wind_size=64, overlap=32, multipass=2,
@@ -712,7 +830,7 @@ def phase_main_path(folder: str, kernels):
     check(launches == only(launches, shift_windows=2 * n_batches),
           f"launches {launches}")
     check_displacement(fields, "CWS path")
-    return launches, pairs_per_s
+    return launches, pairs_per_s, fields
 
 
 def only(launches: dict, **counts) -> dict:
@@ -734,7 +852,7 @@ def phase_fused_paths(uniform: str, shear: str, kernels) -> dict:
     """OfflinePIV at 4 MP, w64/o32, 2-pass CWS over the uniform pairs with
     ``fused="split"`` and with ``fused="on"``, then one batch of
     ``fused="split"`` + DEF over the sheared pairs; returns
-    ``{mode: (launches, pairs_per_s)}`` of the two CWS runs."""
+    ``{mode: (launches, pairs_per_s, fields)}`` of the two CWS runs."""
     from torchpiv_tpu_torch import OfflinePIV
 
     kw = dict(wind_size=64, overlap=32, multipass=2, batch_size=BATCH)
@@ -760,7 +878,7 @@ def phase_fused_paths(uniform: str, shear: str, kernels) -> dict:
         check_fields(fields, piv, N_PAIRS)
         check(launches == only(launches, **want), f"{label}: launches {launches}")
         check_displacement(fields, label)
-        out[fused] = (launches, pairs_per_s)
+        out[fused] = (launches, pairs_per_s, fields)
 
     piv = OfflinePIV(shear, multipass_mode="DEF", max_pairs=BATCH,
                      engine_options={"fused": "split"}, **kw)
@@ -776,6 +894,179 @@ def phase_fused_paths(uniform: str, shear: str, kernels) -> dict:
         f"worst mean |u - shear| {mae:.4f} px")
     check(mae < 0.1, f"DEF fused=split shear error {mae}")
     return out
+
+
+def same_fields(got, want, label: str) -> None:
+    """Two runs' output fields, equal to the last bit."""
+    check(len(got) <= len(want), f"{label}: {len(got)} fields against {len(want)}")
+    for a, b in zip(got, want):
+        check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+              f"{label}: the fields differ from the rolls run's")
+
+
+def phase_variant_paths(folder: str, kernels, rolls_fields, split_fields) -> dict:
+    """The shift-variant paths at 4 MP, w64/o32, 2-pass CWS over the uniform
+    pairs: all pairs with ``shift_variant="bf16"``, one batch each with the
+    other three variants and one with ``fused="split"`` + ``"bf16"``.  The
+    frames are 8-bit, so every run's fields equal the ``rolls`` run's bit for
+    bit.  Returns ``{variant: launches}`` and the bf16 run's pairs/s."""
+    from torchpiv_tpu_torch import OfflinePIV
+
+    kw = dict(wind_size=64, overlap=32, multipass=2, multipass_mode="CWS",
+              batch_size=BATCH)
+    n_batches = -(-N_PAIRS // BATCH)
+    out = {}
+    piv = OfflinePIV(folder, engine_options={"shift_variant": "bf16"}, **kw)
+    check(piv.engine.device.type == "cuda" and piv.engine._shift_variant() == "bf16",
+          "shift_variant did not reach an engine on the card")
+    valid = warm_up(piv, folder)
+    log(f"CWS path shift_variant=bf16: valid share {valid:.4f} over the first "
+        f"{BATCH} pairs")
+    check(valid > 0.95, f"shift_variant=bf16: valid share {valid}")
+    fields, launches, pairs_per_s = drive(piv, kernels)
+    log(f"CWS path shift_variant=bf16: {len(fields)} pairs at {pairs_per_s:.3f} "
+        f"pairs/s, launches {launches}")
+    check_fields(fields, piv, N_PAIRS)
+    check(launches == only(launches, shift_windows_bf16=2 * n_batches),
+          f"shift_variant=bf16: launches {launches}")
+    check_displacement(fields, "CWS path shift_variant=bf16")
+    same_fields(fields, rolls_fields, "shift_variant=bf16")
+    out["bf16"] = launches
+    out["pairs_per_s"] = pairs_per_s
+
+    for variant in ("lanephases", "mxu", "phases"):
+        piv = OfflinePIV(folder, max_pairs=BATCH,
+                         engine_options={"shift_variant": variant}, **kw)
+        fields, launches, _ = drive(piv, kernels)
+        check_fields(fields, piv, BATCH)
+        check(launches == only(launches, **{f"shift_windows_{variant}": 2}),
+              f"shift_variant={variant}: launches {launches}")
+        check_displacement(fields, f"CWS path shift_variant={variant} (one batch)")
+        same_fields(fields, rolls_fields, f"shift_variant={variant}")
+        log(f"shift_variant={variant}: one batch, launches {launches}, fields "
+            f"equal the rolls run's bit for bit")
+        out[variant] = launches
+
+    piv = OfflinePIV(folder, max_pairs=BATCH,
+                     engine_options={"shift_variant": "bf16", "fused": "split"}, **kw)
+    fields, launches, _ = drive(piv, kernels)
+    check_fields(fields, piv, BATCH)
+    check(launches == only(launches, correlate_peakfit=2, shift_windows_bf16=2),
+          f"fused=split + bf16: launches {launches}")
+    same_fields(fields, split_fields, "fused=split + shift_variant=bf16")
+    log(f"fused=split + shift_variant=bf16: one batch, launches {launches}, fields "
+        f"equal the fused=split run's bit for bit")
+    return out
+
+
+def write_rough_pairs(src: str, dst: str, seed: int) -> None:
+    """The uniform pairs with trouble written into the BMPs from ``seed``:
+    ``N_PATCHES`` patches of uncorrelated noise in each second frame."""
+    from torchpiv_tpu_torch.io.dataset import PIVDataset
+    from torchpiv_tpu_torch.io.decode import imwrite_gray
+
+    os.makedirs(dst)
+    ds = PIVDataset(src, ".bmp")
+    rng = np.random.default_rng(seed)
+    for i in range(len(ds)):
+        fa, fb = ds[i]
+        fb = fb.copy()
+        for _ in range(N_PATCHES):
+            r = rng.integers(0, FRAME[0] - PATCH)
+            c = rng.integers(WALL, FRAME[1] - PATCH)
+            fb[r:r + PATCH, c:c + PATCH] = rng.integers(0, 256, (PATCH, PATCH))
+        imwrite_gray(os.path.join(dst, f"p{i}_a.bmp"), fa)
+        imwrite_gray(os.path.join(dst, f"p{i}_b.bmp"), fb)
+
+
+def wall_mask() -> np.ndarray:
+    """The robust path's region-of-interest mask: a wall along the left edge."""
+    mask = np.zeros(FRAME, bool)
+    mask[:, :WALL] = True
+    return mask
+
+
+def check_masked_fields(fields, piv, label: str, tol: float = 0.05) -> None:
+    """Zero displacement in the masked windows, the synthetic displacement
+    within ``tol`` px over the windows clear of the mask and the frame's edge."""
+    masked = np.flip(piv.engine.window_masked[-1].cpu().numpy(), axis=0)
+    check(masked.any() and not masked.all(), f"{label}: the mask masks {masked.mean()}")
+    clear = ~masked
+    clear[:2] = clear[-2:] = False
+    clear[:, -2:] = False
+    clear[:, :np.flatnonzero(~masked[0])[0] + 2] = False
+    for _, _, u, v in fields:
+        check((u[masked] == 0).all() and (v[masked] == 0).all(),
+              f"{label}: a masked window moved")
+        mu, mv = u[clear].mean() / UNIT, -v[clear].mean() / UNIT
+        check(abs(mu - DISPLACEMENT[0]) < tol, f"{label}: mean u {mu}")
+        check(abs(mv - DISPLACEMENT[1]) < tol, f"{label}: mean v {mv}")
+    log(f"{label}: {int(masked.sum())} of {masked.size} windows masked and at zero; "
+        f"mean displacement of the last pair outside ({mu:.4f}, {mv:.4f}) px")
+
+
+def phase_robust_paths(folder: str, kernels) -> dict:
+    """The robust configuration at 4 MP over 8 uniform pairs with corrupted
+    patches and a wall mask: ``shift_variant="phases"``, the normalized-median
+    filter, velocity limits, the global sigma test and the second-peak
+    fallback; then one batch each of RPC + Gaussian window weights, the
+    gauss2d fit and ``infill="fused"``.  Returns the first run's launch
+    counts and pairs/s."""
+    from torchpiv_tpu_torch import OfflinePIV
+    from torchpiv_tpu_torch.io.dataset import PIVDataset
+
+    kw = dict(wind_size=64, overlap=32, multipass=2, multipass_mode="CWS",
+              batch_size=BATCH)
+    roi = {"frame_mask": wall_mask()}
+    n_batches = -(-N_PAIRS // BATCH)
+    piv = OfflinePIV(folder, engine_options={"shift_variant": "phases", **ROBUST, **roi},
+                     **kw)
+    cfg = piv.engine.config
+    check(piv.engine.device.type == "cuda" and cfg.second_peak_fallback
+          and cfg.median_filter == "normmedian" and piv.engine.frame_mask is not None,
+          "the robust knobs did not reach an engine on the card")
+    masked = piv.engine.window_masked[-1]
+    _, a, b = PIVDataset(folder, ".bmp").read_batch(list(range(BATCH)))
+    a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    _, _, inval = piv.engine(a, b)
+    check(bool(inval[:, masked].all()), "a masked window is valid")
+    valid = 1.0 - inval[:, ~masked].float().mean().item()
+    plain = OfflinePIV(folder, engine_options={"shift_variant": "phases", **roi}, **kw)
+    _, _, plain_inval = plain.engine(a, b)
+    flagged = plain_inval[:, ~masked].float().mean().item()
+    log(f"robust path: valid share outside the mask {valid:.4f} over the first "
+        f"{BATCH} pairs ({1 - flagged:.4f} with the peak ratio alone)")
+    check(flagged > 0.0, "the corrupted patches invalidate nothing")
+    check(valid > 0.95, f"robust path: valid share {valid}")
+    fields, launches, pairs_per_s = drive(piv, kernels)
+    log(f"robust path: {len(fields)} pairs at {pairs_per_s:.3f} pairs/s, "
+        f"launches {launches}")
+    check_fields(fields, piv, N_PAIRS)
+    check(launches == only(launches, shift_windows_phases=2 * n_batches),
+          f"robust path: launches {launches}")
+    check_masked_fields(fields, piv, "robust path")
+    robust_launches = launches
+
+    # the 3-point fit on the phase correlation's peak carries a bias of
+    # about 0.05 px on these particle images (in the JAX engine too), so
+    # that batch is held to 0.1 px
+    for label, options, tol in (
+            ("rpc + gaussian weights",
+             {"correlation": "rpc", "window_weight": "gaussian"}, 0.1),
+            ("gauss2d", {"subpixel": "gauss2d"}, 0.05),
+            ("infill=fused", {"infill": "fused", **ROBUST}, 0.05)):
+        one = OfflinePIV(folder, max_pairs=BATCH, engine_options={**options, **roi}, **kw)
+        if options.get("infill") == "fused":
+            u, v, inval = one.engine(a, b)
+            check(bool(torch.isfinite(u).all() and torch.isfinite(v).all()),
+                  "infill=fused left a NaN")
+            check(bool(inval.any()), "infill=fused had nothing to fill")
+        fields, launches, _ = drive(one, kernels)
+        check_fields(fields, one, BATCH)
+        check(launches == only(launches, shift_windows=2),
+              f"{label}: launches {launches}")
+        check_masked_fields(fields, one, f"robust path, {label} (one batch)", tol)
+    return robust_launches, pairs_per_s
 
 
 def phase_def_path(folder: str, kernels):
@@ -849,7 +1140,7 @@ def phase_bicubic_paths(folder: str, kernels) -> dict:
     return out["CWS"]
 
 
-def phase_profile(folder: str, label: str, **cfg_kw) -> dict:
+def phase_profile(folder: str, label: str, frame_mask=None, **cfg_kw) -> dict:
     """Engine time per batch (CUDA events), peak device memory and device
     time by kernel (``torch.profiler``) for one batch of ``folder``; returns
     ``{"ms_pair", "ms_batch", "peak_bytes", "kernels": {name: ms}}``."""
@@ -863,7 +1154,7 @@ def phase_profile(folder: str, label: str, **cfg_kw) -> dict:
     _, a, b = PIVDataset(folder, ".bmp").read_batch(list(range(BATCH)))
     a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
     engine = MultipassPIV(PIVConfig(frame_shape=FRAME, wind_size=64, overlap=32,
-                                    multipass=2, **cfg_kw))
+                                    multipass=2, **cfg_kw), frame_mask=frame_mask)
     ms = cuda_ms(lambda: packed_forward(engine, a, b), reps=5)
     log(f"engine {label}: {ms:.3f} ms per batch of {BATCH} = {ms / BATCH:.3f} "
         f"ms/pair (device-resident uint8 frames, host tail excluded)")
@@ -889,6 +1180,7 @@ def phase_profile(folder: str, label: str, **cfg_kw) -> dict:
             f"x{e.count:<4d} {e.key[:90]}")
     return {"ms_pair": ms / BATCH, "ms_batch": ms, "peak_bytes": peak,
             "device_ms": total / 1e3,
+            "n_device_events": sum(e.count for e in events),
             "kernels": {e.key: e.self_device_time_total / 1e3 for e in events}}
 
 
@@ -912,7 +1204,7 @@ def check_fused_profile(fused: dict, unfused: dict, label: str) -> None:
     check(roll < 0.1 * kernel_ms(unfused, roll_kernel), f"{label}: fftshift rolls ran")
 
 
-def phase_reference(folder: str, label: str, **cfg_kw) -> None:
+def phase_reference(folder: str, label: str, frame_mask=None, **cfg_kw) -> None:
     """The CUDA engine against the CPU engine on one full-size pair."""
     from torchpiv_tpu_torch import MultipassPIV, PIVConfig
     from torchpiv_tpu_torch.io.dataset import PIVDataset
@@ -921,10 +1213,12 @@ def phase_reference(folder: str, label: str, **cfg_kw) -> None:
     cfg = PIVConfig(frame_shape=FRAME, wind_size=64, overlap=32, multipass=2,
                     **cfg_kw)
     t0 = time.perf_counter()
-    cu, cv, ci = (t.cpu().numpy() for t in MultipassPIV(cfg, device="cuda")(
-        torch.from_numpy(fa), torch.from_numpy(fb)))
-    pu, pv, pi = (t.numpy() for t in MultipassPIV(cfg, device="cpu")(
-        torch.from_numpy(fa), torch.from_numpy(fb)))
+    cu, cv, ci = (t.cpu().numpy() for t in MultipassPIV(
+        cfg, device="cuda", frame_mask=frame_mask)(
+            torch.from_numpy(fa), torch.from_numpy(fb)))
+    pu, pv, pi = (t.numpy() for t in MultipassPIV(
+        cfg, device="cpu", frame_mask=frame_mask)(
+            torch.from_numpy(fa), torch.from_numpy(fb)))
     both = ~(ci | pi)
     flips = float((ci != pi).mean())
     diff = np.abs(np.concatenate([(cu - pu)[both], (cv - pv)[both]]))
@@ -949,22 +1243,28 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         uniform = os.path.join(tmp, "uniform")
         shear = os.path.join(tmp, "shear")
+        rough = os.path.join(tmp, "rough")
         t0 = time.perf_counter()
         write_pairs(uniform, N_PAIRS, DISPLACEMENT, seed=100)
         write_pairs(shear, N_SHEAR_PAIRS, shear_flow(*SHEAR), seed=200)
-        log(f"wrote {N_PAIRS} + {N_SHEAR_PAIRS} pairs of {FRAME} in "
+        write_rough_pairs(uniform, rough, seed=300)
+        log(f"wrote {N_PAIRS} + {N_SHEAR_PAIRS} + {N_PAIRS} pairs of {FRAME} in "
             f"{time.perf_counter() - t0:.1f} s")
         rows = phase_kernels(uniform)
         log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
-        cws_launches, pairs_per_s = phase_main_path(uniform, KERNELS)
+        cws_launches, pairs_per_s, cws_fields = phase_main_path(uniform, KERNELS)
         def_launches, def_pairs_per_s = phase_def_path(shear, KERNELS)
         bicubic_launches = phase_bicubic_paths(shear, KERNELS)
         fused_runs = phase_fused_paths(uniform, shear, KERNELS)
+        variant_runs = phase_variant_paths(uniform, KERNELS, cws_fields,
+                                           fused_runs["split"][2])
+        robust_launches, robust_pairs_per_s = phase_robust_paths(rough, KERNELS)
+        del cws_fields
         log(f"paths done at {time.perf_counter() - t_start:.1f} s")
         cws = phase_profile(uniform, "CWS")
         log(f"CWS path: engine busy share {cws['ms_pair'] * pairs_per_s / 1e3:.3f} "
             f"(engine ms/pair x pairs/s; the rest is host work the card waits on)")
-        for fused, (_, fused_pairs_per_s) in fused_runs.items():
+        for fused, (_, fused_pairs_per_s, _) in fused_runs.items():
             prof = phase_profile(uniform, f"CWS fused={fused}", fused=fused)
             check_fused_profile(prof, cws, f"CWS fused={fused}")
             log(f"CWS fused={fused}: engine {prof['ms_batch']:.3f} ms per batch "
@@ -978,7 +1278,26 @@ def main() -> int:
         log(f"DEF path: engine {def_ms:.3f} ms/pair with peakfit=pallas, "
             f"{xla_ms:.3f} with peakfit=xla; busy share "
             f"{def_ms * def_pairs_per_s / 1e3:.3f}")
+        bf16 = phase_profile(uniform, "CWS shift_variant=bf16", shift_variant="bf16")
+        log(f"CWS shift_variant=bf16: engine {bf16['ms_batch']:.3f} ms per batch "
+            f"(rolls {cws['ms_batch']:.3f}), busy share "
+            f"{bf16['ms_pair'] * variant_runs['pairs_per_s'] / 1e3:.3f}")
+        robust = phase_profile(rough, "robust", frame_mask=wall_mask(),
+                               shift_variant="phases", **ROBUST)
+        log(f"robust path: engine {robust['ms_batch']:.3f} ms per batch "
+            f"(plain CWS {cws['ms_batch']:.3f}), peak memory "
+            f"{robust['peak_bytes'] / 2**20:.1f} MiB, busy share "
+            f"{robust['ms_pair'] * robust_pairs_per_s / 1e3:.3f}")
+        filled = phase_profile(rough, "infill=fused", frame_mask=wall_mask(),
+                               infill="fused", **ROBUST)
+        n_launched = len(filled["kernels"])
+        log(f"infill=fused: engine {filled['ms_batch']:.3f} ms per batch, "
+            f"{filled['device_ms']:.3f} ms of it on the device in "
+            f"{filled['n_device_events']} kernel launches and copies "
+            f"({n_launched} kinds)")
         phase_reference(uniform, "CWS")
+        phase_reference(rough, "robust", frame_mask=wall_mask(),
+                        shift_variant="phases", **ROBUST)
         phase_reference(shear, "DEF", multipass_mode="DEF", peakfit="pallas")
         phase_reference(uniform, "CWS fused=split", fused="split")
         phase_reference(uniform, "CWS fused=on", fused="on")
@@ -986,7 +1305,14 @@ def main() -> int:
     on_path = {"shift_windows": cws_launches, "shift_windows_bicubic": bicubic_launches,
                "def_windows": def_launches, "peakfit": def_launches,
                "correlate_peakfit": fused_runs["split"][0],
-               "fused_piv_pass": fused_runs["on"][0]}
+               "fused_piv_pass": fused_runs["on"][0],
+               "shift_windows_bf16": variant_runs["bf16"],
+               "shift_windows_lanephases": variant_runs["lanephases"],
+               "shift_windows_mxu": variant_runs["mxu"],
+               "shift_windows_phases": robust_launches}
+    check([r["name"] for r in rows] != [] and
+          sorted(r["name"] for r in rows) == sorted(k.__name__ for k in KERNELS),
+          "the kernels line does not list every kernel of the package")
     for row in rows:
         row["launches"] = on_path[row["name"]][row["name"]]
         check(row["launches"] > 0, f"{row['name']} was not launched on its path")

@@ -1,8 +1,10 @@
 """The port's PIVConfig twin and the static engine state against the JAX
 engine: validation, pass schedules, field shapes, coordinates, window
 origins and spline upsample matrices (exact), the JAX-config conversion,
-the pass-fusion knob with the combinations both engines refuse, a
-ValueError for every knob that is not ported yet, and the size rules of
+the pass-fusion knob with the combinations both engines refuse, the
+robust-correlation and validation knobs, the live ``shift_variant``, the
+static region-of-interest state, a ValueError for what is not ported
+(``dtype``, and bicubic CWS with a shift variant), and the size rules of
 the resampling kernels (the JAX engine falls through to its XLA paths
 there, which the port does not have)."""
 import dataclasses
@@ -13,7 +15,7 @@ import pytest
 from torchpiv_tpu.models import MultipassPIV as JaxMultipassPIV
 from torchpiv_tpu.models import PIVConfig as JaxPIVConfig
 from torchpiv_tpu_torch import MultipassPIV, PIVConfig
-from torchpiv_tpu_torch.state import from_jax_config
+from torchpiv_tpu_torch.state import from_jax_config, from_jax_engine_state
 
 FRAME = (192, 256)
 
@@ -36,6 +38,26 @@ SUPPORTED = [
     dict(fused="on"),
     dict(fused="split", multipass_mode="DEF", cws_interp="bicubic"),
     dict(fused="on", multipass_mode="DWS", edge_exact=False),
+    # the robust-correlation and validation knobs
+    dict(window_weight="gaussian"),
+    dict(correlation="rpc"),
+    dict(correlation="rpc", rpc_diameter=3.5, window_weight="gaussian"),
+    dict(subpixel="gauss2d"),
+    dict(infill="fused"),
+    dict(median_filter="median"),
+    dict(median_filter="normmedian", median_threshold=3.0),
+    dict(u_limits=(-5.0, 5.0)),
+    dict(v_limits=(-5.0, 5.0)),
+    dict(global_std=3.0),
+    dict(second_peak_fallback=True),
+    dict(second_peak_fallback=True, fallback_threshold=1.5),
+    # the shift variants, where the JAX engine runs them
+    dict(shift_variant="bf16"),
+    dict(shift_variant="lanephases", multipass_mode="DWS"),
+    dict(shift_variant="mxu", fused="split"),
+    dict(shift_variant="phases", max_shift=8),
+    dict(shift_variant="bf16", multipass_mode="DWS", cws_interp="bicubic"),
+    dict(shift_variant="phases", multipass_mode="DEF", cws_interp="bicubic"),
 ]
 
 
@@ -86,15 +108,8 @@ def test_fields_and_defaults_match_jax_twin():
 
 
 NOT_PORTED = [
-    dict(window_weight="gaussian"),
-    dict(correlation="rpc"),
-    dict(subpixel="gauss2d"),
-    dict(infill="fused"),
-    dict(median_filter="median"),
-    dict(u_limits=(-5.0, 5.0)),
-    dict(v_limits=(-5.0, 5.0)),
-    dict(global_std=3.0),
-    dict(second_peak_fallback=True),
+    dict(dtype="bfloat16"),
+    dict(dtype="float16"),
 ]
 
 
@@ -161,6 +176,82 @@ def test_peakfit_kernel_combinations_raise_like_jax(kw):
         PIVConfig(frame_shape=FRAME, **kw)
 
 
+def test_only_dtype_is_left_unported():
+    from torchpiv_tpu_torch.config import NOT_PORTED as table
+
+    assert set(table) == {"dtype"}
+
+
+@pytest.mark.parametrize("variant", ["bf16", "lanephases", "mxu", "phases"])
+def test_bicubic_cws_with_a_shift_variant_raises(variant):
+    """The JAX engine sends this combination to its XLA bicubic shift, which
+    the port does not have; everything next to it constructs."""
+    kw = dict(frame_shape=FRAME, cws_interp="bicubic", shift_variant=variant)
+    JaxPIVConfig(multipass=2, **kw)  # valid for the JAX engine
+    with pytest.raises(ValueError, match="shift_variant"):
+        PIVConfig(multipass=2, **kw)
+    with pytest.raises(ValueError, match="shift_variant"):
+        from_jax_config(dataclasses.asdict(JaxPIVConfig(multipass=2, **kw)))
+    PIVConfig(multipass=1, **kw)  # no refine pass, no shift
+    PIVConfig(multipass=2, multipass_mode="DWS", **kw)  # DWS copies tiles
+    PIVConfig(multipass=2, multipass_mode="DEF", **kw)  # DEF ignores the knob
+    PIVConfig(multipass=2, **dict(kw, shift_variant="rolls"))
+
+
+@pytest.mark.parametrize("variant,runs", [
+    ("rolls", "rolls"), ("bf16", "bf16"), ("lanephases", "lanephases"),
+    ("mxu", "mxu"), ("phases", "phases"), ("no_such_variant", "rolls")])
+def test_shift_variant_is_live(variant, runs):
+    """The knob reaches the engine; a name that is none of the five runs
+    ``rolls``, as ``shift_windows_pallas`` does for it."""
+    cfg = PIVConfig(frame_shape=FRAME, multipass=2, shift_variant=variant)
+    assert cfg.shift_variant == variant
+    assert MultipassPIV(cfg, device="cpu")._shift_variant() == runs
+
+
+@pytest.mark.parametrize("threshold", [0.0, 0.3, 0.5, 1.0])
+def test_mask_state_matches_jax_engine(threshold):
+    """Both engines hold the same static state for a region-of-interest
+    mask: the mask, the per-pass masked windows, origins and upsamplers."""
+    rng = np.random.default_rng(3)
+    mask = np.zeros(FRAME, bool)
+    mask[:70, 40:130] = True
+    mask[150:, 200:] = True
+    mask |= rng.uniform(size=FRAME) < 0.02
+    jcfg, tcfg = _pair(multipass=3)
+    jeng = JaxMultipassPIV(jcfg, frame_mask=mask, mask_threshold=threshold)
+    teng = MultipassPIV(tcfg, device="cpu", frame_mask=mask,
+                        mask_threshold=threshold)
+    want = from_jax_engine_state(jeng)
+    assert {"frame_mask", "window_masked_0", "window_masked_2", "origins_1",
+            "Ay_2", "Ax_1"} <= set(want)
+    have = dict(teng.named_buffers())
+    for name, value in want.items():
+        assert have[name].dtype == value.dtype, name
+        assert np.array_equal(have[name].numpy(), value.numpy()), name
+    assert any(m.any() and not m.all() for m in teng.window_masked)
+    # the state loads into an engine that was built without the mask's
+    # buffers being equal: same names, same shapes
+    other = MultipassPIV(tcfg, device="cpu", frame_mask=~mask,
+                         mask_threshold=threshold)
+    other.load_state_dict(want, strict=False)
+    for name, value in want.items():
+        assert np.array_equal(dict(other.named_buffers())[name].numpy(), value.numpy())
+
+
+def test_engine_without_mask_has_no_mask_state():
+    jcfg, tcfg = _pair()
+    teng = MultipassPIV(tcfg, device="cpu")
+    assert teng.frame_mask is None and teng.window_masked == [None, None]
+    want = from_jax_engine_state(JaxMultipassPIV(jcfg))
+    assert not any(k.startswith(("frame_mask", "window_masked")) for k in want)
+    with pytest.raises(ValueError, match="mask_threshold"):
+        MultipassPIV(tcfg, device="cpu", frame_mask=np.zeros(FRAME, bool),
+                     mask_threshold=1.5)
+    with pytest.raises(ValueError, match="frame_mask"):
+        MultipassPIV(tcfg, device="cpu", frame_mask=np.zeros((8, 8), bool))
+
+
 @pytest.mark.parametrize("kw", [
     dict(use_pallas="on"), dict(pallas_interpret=True),
     dict(shift_variant="phases"), dict(shift_maps="prefetch"),
@@ -176,6 +267,11 @@ def test_tpu_lowering_knobs_are_accepted(kw):
     dict(overlap=64), dict(wind_size=300), dict(multipass_mode="XYZ"),
     dict(infill="nope"), dict(use_pallas="maybe"), dict(correlator="dft"),
     dict(multipass=6), dict(def_margin=0), dict(shift_maps="all"),
+    dict(window_weight="hann"), dict(correlation="phase"),
+    dict(correlation="rpc", rpc_diameter=0.0), dict(subpixel="centroid"),
+    dict(u_limits=(5.0, -5.0)), dict(v_limits=(1.0,)), dict(global_std=0.0),
+    dict(second_peak_fallback=True, validate=False),
+    dict(second_peak_fallback=True, fallback_threshold=0.0),
 ])
 def test_invalid_values_raise_like_jax(kw):
     with pytest.raises(ValueError):

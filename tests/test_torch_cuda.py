@@ -1,7 +1,8 @@
 """The port on an NVIDIA card: each CUDA kernel (bilinear and bicubic window
-shift, window deformation, fused peak fit, correlate-and-fit, whole pass)
-against its plain PyTorch version, the CUDA engine against the CPU engine,
-and the kernels' launches on the OfflinePIV path.  Every test skips without a CUDA
+shift, the four bilinear shift variants, window deformation, fused peak fit,
+correlate-and-fit, whole pass) against its plain PyTorch version, the CUDA
+engine against the CPU engine (shift variants and robust knobs too), and the
+kernels' launches on the OfflinePIV paths.  Every test skips without a CUDA
 device.  The file imports neither JAX nor the JAX package, so it also runs
 where JAX is not installed:
 
@@ -28,7 +29,8 @@ from torchpiv_tpu_torch.kernels.corrfit import correlate_peakfit
 from torchpiv_tpu_torch.kernels.deform import def_windows
 from torchpiv_tpu_torch.kernels.fused_pass import fused_piv_pass
 from torchpiv_tpu_torch.kernels.peakfit import peakfit
-from torchpiv_tpu_torch.kernels.shift import shift_windows, shift_windows_bicubic
+from torchpiv_tpu_torch.kernels.shift import (VARIANT_WRAPPERS, shift_windows,
+                                              shift_windows_bicubic)
 from torchpiv_tpu_torch.ops.corrfit import (correlate_peakfit_reference,
                                             fused_pass_reference)
 from torchpiv_tpu_torch.ops.correlate import correlate_fft
@@ -76,6 +78,48 @@ def test_kernel_matches_plain_version(card, shape, w, o, kind):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("values", ["uint8", "float"])
+@pytest.mark.parametrize("kind", ["integer", "fractional", "mixed"])
+@pytest.mark.parametrize("shape,w,o,options", [
+    ((256, 320), 32, 16, {}), ((200, 261), 64, 32, {}), ((300, 300), 128, 64, {}),
+    ((131, 157), 16, 8, {}), ((256, 320), 32, 16, dict(max_shift=5)),
+    ((256, 317), 32, 24, dict(flat_wrap=False)), ((200, 200), 25, 10, {})])
+@pytest.mark.parametrize("variant", sorted(VARIANT_WRAPPERS))
+def test_variant_kernel_matches_plain_version_and_rolls(card, variant, shape, w, o,
+                                                        options, kind, values):
+    """A variant's kernel equals its plain version bit for bit (fractional
+    shifts too: the blend rounds every product and sum in the plain
+    version's order) and, on 8-bit grey levels, the ``rolls`` kernel."""
+    H, W = shape
+    n = ((H - w) // (w - o) + 1) * ((W - w) // (w - o) + 1)
+    g = torch.Generator().manual_seed(w + len(variant))
+    frames = torch.rand(3, H, W, generator=g) * 255
+    if values == "uint8":
+        frames = frames.round()
+    frames = frames.to(card)
+    vx = torch.rand(3, n, generator=g) * 3 * w - 1.5 * w  # past +-S = w/2
+    vy = torch.rand(3, n, generator=g) * 3 * w - 1.5 * w
+    if kind == "integer":
+        vx, vy = vx.round(), vy.round()
+    elif kind == "mixed":
+        vx = vx.round()
+    vx, vy = vx.to(card), vy.to(card)
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o, **options)
+    wrapper = VARIANT_WRAPPERS[variant]
+    before = wrapper.launches, shift_windows.launches
+    got = shift_windows(frames, vx, vy, variant=variant, **kw)
+    want = shift_windows_reference(frames, vx, vy, variant=variant, **kw)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, shift_windows.launches) == (before[0] + 1, before[1])
+    assert torch.equal(got, want)
+    rolls = shift_windows(frames, vx, vy, **kw)
+    if values == "uint8" or variant == "lanephases":
+        assert torch.equal(got, rolls)
+    else:  # the frame was rounded to bfloat16
+        assert not torch.equal(got, rolls)
+    assert torch.equal(wrapper(frames[0], vx[0], vy[0], **kw), got[0])
 
 
 @pytest.mark.parametrize("kind", ["integer", "fractional", "mixed"])
@@ -326,6 +370,13 @@ def test_packed_shift_equals_pack_of_the_standard_output(card, shape, w, o, kind
     dict(multipass_mode="DEF", fused="split"),
     dict(multipass_mode="CWS", fused="split", cws_interp="bicubic"),
     dict(multipass_mode="CWS", fused="on"), dict(multipass_mode="DWS", fused="on"),
+    dict(multipass_mode="CWS", shift_variant="bf16"),
+    dict(multipass_mode="DWS", shift_variant="lanephases"),
+    dict(multipass_mode="CWS", shift_variant="mxu", fused="split"),
+    dict(multipass_mode="CWS", shift_variant="phases"),
+    dict(multipass_mode="CWS", correlation="rpc", window_weight="gaussian"),
+    dict(multipass_mode="CWS", subpixel="gauss2d", infill="fused"),
+    dict(multipass_mode="CWS", median_filter="normmedian", infill="none"),
 ], ids=lambda kw: "-".join(kw.values()))
 def test_cuda_engine_matches_cpu_engine(card, kw):
     flow = shear_flow(1.0, 0.01) if kw["multipass_mode"] == "DEF" else (3.3, -2.1)
@@ -393,6 +444,47 @@ def test_offline_piv_fused_paths_launch_their_kernels(card, tmp_path, fused, mod
     for _, _, u, v in fields:
         assert abs(np.median(u) / 1000 - 3.3) < 0.1
         assert abs(-np.median(v) / 1000 + 2.1) < 0.1
+
+
+@pytest.mark.parametrize("options,mode,want", [
+    # 2 batches; per batch one shift launch a frame
+    ({"shift_variant": "bf16"}, "CWS", dict(shift_windows_bf16=4)),
+    ({"shift_variant": "lanephases"}, "DWS", dict(shift_windows_lanephases=4)),
+    ({"shift_variant": "mxu", "fused": "split"}, "CWS",
+     dict(shift_windows_mxu=4, correlate_peakfit=4)),
+    ({"shift_variant": "phases", "median_filter": "normmedian",
+      "second_peak_fallback": True, "global_std": 5.0, "u_limits": (-8.0, 8.0)},
+     "CWS", dict(shift_windows_phases=4)),
+    ({"shift_variant": "phases", "fused": "on"}, "CWS", dict(fused_piv_pass=4)),
+    ({"shift_variant": "bf16"}, "DEF", dict(def_windows=4)),
+    ({"shift_variant": "no_such_variant"}, "CWS", dict(shift_windows=4)),
+], ids=lambda x: "-".join(map(str, x.values())) if isinstance(x, dict) else str(x))
+def test_offline_piv_variant_paths_launch_their_kernels(card, tmp_path, options, mode,
+                                                        want):
+    """A variant's kernel runs where the knob is read, with a mask on, and
+    the 8-bit frames give the ``rolls`` fields bit for bit."""
+    from torchpiv_tpu_torch.kernels import KERNELS
+
+    for i in range(3):
+        fa, fb = particle_pair((256, 256), (3.3, -2.1), seed=i)
+        imwrite_gray(str(tmp_path / f"p{i}_a.bmp"), fa)
+        imwrite_gray(str(tmp_path / f"p{i}_b.bmp"), fb)
+    mask = np.zeros((256, 256), bool)
+    mask[:, :48] = True
+    kw = dict(multipass=2, multipass_mode=mode, batch_size=2)
+    piv = OfflinePIV(str(tmp_path), engine_options={**options, "frame_mask": mask}, **kw)
+    before = {k.__name__: k.launches for k in KERNELS}
+    fields = list(piv())
+    assert len(fields) == 3
+    got = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
+    assert got == {**dict.fromkeys(got, 0), **want}
+    rolls = list(OfflinePIV(str(tmp_path), engine_options={
+        **options, "shift_variant": "rolls", "frame_mask": mask}, **kw)())
+    masked = np.flip(piv.engine.window_masked[-1].cpu().numpy(), axis=0)
+    for (_, _, u, v), (_, _, ru, rv) in zip(fields, rolls):
+        assert np.array_equal(u, ru) and np.array_equal(v, rv)
+        assert (u[masked] == 0).all() and (v[masked] == 0).all()
+        assert abs(np.median(u[~masked]) / 1000 - 3.3) < 0.1
 
 
 def test_tf32_on_is_refused(card, monkeypatch):

@@ -1,5 +1,6 @@
 """The port's pipeline layer: OfflinePIV end to end against the JAX
 OfflinePIV (running the interpreted Pallas kernels) on the same BMP folder,
+also with a region-of-interest mask, a shift variant and the robust knobs,
 the host tail, the I/O copies, the prefetcher, the device rules, and a
 source scan that keeps JAX and the JAX package out of the port."""
 import ast
@@ -17,7 +18,7 @@ from torchpiv_tpu_torch import OfflinePIV
 from torchpiv_tpu_torch.io.dataset import PIVDataset, list_pairs
 from torchpiv_tpu_torch.io.decode import imread_gray, imwrite_gray
 from torchpiv_tpu_torch.io.prefetch import PairPrefetcher
-from torchpiv_tpu_torch.pipeline import finalize_fields
+from torchpiv_tpu_torch.pipeline import finalize_fields, resolve_frame_mask
 from torchpiv_tpu_torch.utils.synthetic import particle_pair
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -64,6 +65,97 @@ def test_offline_piv_matches_jax_offline_piv(tmp_path, mode, options, holes):
             assert np.isfinite(a).all()
             assert np.sqrt(np.mean(d ** 2)) < 0.01
             assert (d > 0.01).mean() < 0.02
+
+
+def _mask(kind):
+    mask = np.zeros((256, 256), bool)
+    if kind == "wall":
+        mask[:, :48] = True
+    else:  # most of the frame: more than half of the windows
+        mask[:, :170] = True
+    return mask
+
+
+@pytest.mark.parametrize("options,kind,threshold", [
+    ({}, "wall", 0.5),
+    ({}, "most", 0.5),  # a large mask is no reason to skip the pair
+    ({"mode": "DWS", "shift_variant": "bf16"}, "wall", 0.25),
+    ({"shift_variant": "phases", "median_filter": "normmedian",
+      "u_limits": (-8.0, 8.0), "v_limits": (-8.0, 8.0), "global_std": 5.0,
+      "second_peak_fallback": True}, "wall", 0.5),
+    ({"infill": "fused"}, "wall", 0.5),
+    ({"infill": "none", "window_weight": "gaussian", "correlation": "rpc"}, "wall", 0.5),
+], ids=["wall", "most", "dws-bf16", "robust", "fused-infill", "rpc-no-infill"])
+def test_offline_piv_with_frame_mask_matches_jax_offline_piv(tmp_path, options, kind,
+                                                            threshold):
+    _write_pairs(tmp_path, 3, holes=True)
+    mask = _mask(kind)
+    options = dict(options)
+    kw = dict(file_fmt=".bmp", wind_size=64, overlap=32, multipass=2,
+              multipass_mode=options.pop("mode", "CWS"), dt=2.0, scale=0.05,
+              folder_mode="pairs")
+    roi = {"frame_mask": mask, "mask_threshold": threshold}
+    want = list(JaxOfflinePIV(
+        str(tmp_path), device="cpu",
+        engine_options={"pallas_interpret": True, **options, **roi}, **kw)())
+    piv = OfflinePIV(str(tmp_path), device="cpu", batch_size=2,
+                     engine_options={**options, **roi}, **kw)
+    got = list(piv())
+    assert len(got) == len(want) == 3
+    masked = np.flip(piv.engine.window_masked[-1].numpy(), axis=0)  # output rows
+    assert masked.any() and not masked.all()
+    unit = 0.05 / 2.0 * 1000
+    for (ox, oy, ou, ov), (rx, ry, ru, rv) in zip(got, want):
+        np.testing.assert_array_equal(ox, rx)
+        np.testing.assert_array_equal(oy, ry)
+        if options.get("infill", "host") != "fused":  # the device fill covers them
+            assert (ou[masked] == 0).all() and (ov[masked] == 0).all()
+        for a, b in ((ou, ru), (ov, rv)):
+            d = np.abs(np.asarray(a) - np.asarray(b)) / unit
+            assert np.isfinite(a).all()
+            assert np.sqrt(np.mean(d ** 2)) < 0.01
+            assert (d > 0.01).mean() < 0.02
+
+
+def test_offline_piv_takes_the_mask_from_an_image(tmp_path):
+    _write_pairs(tmp_path, 1, holes=False)
+    mask = _mask("wall")
+    path = str(tmp_path.parent / "roi_mask.bmp")
+    imwrite_gray(path, mask.astype(np.uint8) * 255)
+    np.testing.assert_array_equal(resolve_frame_mask(path), mask)
+    np.testing.assert_array_equal(resolve_frame_mask(mask.astype(np.uint8)), mask)
+    assert resolve_frame_mask(None) is None
+    with pytest.raises(ValueError, match="mask"):
+        resolve_frame_mask(str(tmp_path / "missing.bmp"))
+    kw = dict(device="cpu", wind_size=64, overlap=32, multipass=2)
+    from_file = OfflinePIV(str(tmp_path), engine_options={"frame_mask": path}, **kw)
+    from_array = OfflinePIV(str(tmp_path), engine_options={"frame_mask": mask}, **kw)
+    assert torch.equal(from_file.engine.frame_mask, from_array.engine.frame_mask)
+    (a,), (b,) = list(from_file()), list(from_array())
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_finalize_fields_with_static_mask_matches_jax():
+    rng = np.random.default_rng(1)
+    u = rng.normal(3.0, 0.1, (15, 15)).astype(np.float32)
+    v = rng.normal(-2.0, 0.1, (15, 15)).astype(np.float32)
+    inval = rng.uniform(size=(15, 15)) < 0.05
+    x, y = np.meshgrid(np.arange(15.0) * 16 + 32, np.arange(15.0) * 16 + 32)
+    static = np.zeros((15, 15), bool)
+    static[:, :9] = True  # more than half the field
+    for mask in (inval | static, None, np.ones((15, 15), bool)):
+        got = finalize_fields(u, v, mask, x, y, 0.05, 2.0, static)
+        want = jax_finalize_fields(u, v, mask, x, y, 0.05, 2.0, static)
+        if want is None:
+            assert got is None
+            continue
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        assert (np.flip(got[2], 0)[static] == 0).all()
+    # without the static mask the same windows are infilled, not zeroed
+    plain = finalize_fields(u, v, inval | static, x, y, 0.05, 2.0)
+    assert plain is None or (np.flip(plain[2], 0)[static] != 0).all()
 
 
 @pytest.mark.parametrize("fused,mode", [("split", "CWS"), ("split", "DEF"),
@@ -147,8 +239,8 @@ def test_offline_piv_skip_and_max_pairs(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     dict(background="auto"), dict(preprocess="clahe"),
-    dict(engine_options={"frame_mask": np.zeros((256, 256), bool)}),
-    dict(engine_options={"window_weight": "gaussian"}),
+    dict(engine_options={"dtype": "bfloat16"}),
+    dict(engine_options={"cws_interp": "bicubic", "shift_variant": "mxu"}),
 ])
 def test_offline_piv_rejects_what_is_not_ported(tmp_path, kw):
     _write_pairs(tmp_path, 1, holes=False)

@@ -152,7 +152,8 @@ def test_wrapper_rejects_wrong_map_shape():
 
 def test_kernel_sources_are_in_the_package():
     names = ["corrfit", "def_windows", "fused_pass", "peakfit", "shift_windows",
-             "shift_windows_bicubic"]
+             "shift_windows_bf16", "shift_windows_bicubic",
+             "shift_windows_lanephases", "shift_windows_mxu", "shift_windows_phases"]
     assert _build.sources() == names
     wrappers = {"correlate_peakfit": "corrfit", "fused_piv_pass": "fused_pass"}
     assert sorted(wrappers.get(k.__name__, k.__name__) for k in KERNELS) == names

@@ -5,8 +5,11 @@ field names, defaults, ``pass_schedule()`` and validation, so a JAX config
 converts one to one (``from_dict``).
 
 Knobs whose only effect is a TPU lowering are accepted and do nothing here:
-``use_pallas``, ``pallas_interpret``, ``shift_variant``, ``shift_maps``,
-``extract_variant``, ``complex_mm``, ``correlator`` and ``dft_precision``.
+``use_pallas``, ``pallas_interpret``, ``shift_maps``, ``extract_variant``,
+``complex_mm``, ``correlator`` and ``dft_precision``.  ``shift_variant`` is
+live: it selects the bilinear shift kernel of the CWS and DWS passes
+(``kernels/shift.py``), and a name that is none of the five runs
+``"rolls"``, as in the JAX engine.
 The port always correlates in float32, through ``torch.fft`` or inside its
 pass-fusion kernels, and always resamples windows with its CUDA kernels (their plain versions on the CPU):
 the JAX engine's XLA shift and dense-gather DEF paths, which have other
@@ -18,8 +21,18 @@ peak fit of every pass in one CUDA kernel, ``fused="on"`` the whole pass
 (window shift included); where the JAX engine would silently run its unfused
 chain (see ``MultipassPIV``) the port does too.
 
-Knobs that the port does not implement yet raise ``ValueError`` naming the
-knob (``NOT_PORTED``).
+The robust-correlation and validation knobs (``window_weight``,
+``correlation="rpc"``, ``subpixel="gauss2d"``, ``infill="fused"``,
+``median_filter``, ``u_limits``/``v_limits``, ``global_std``,
+``second_peak_fallback``) are live, with the JAX twin's cross-checks.
+
+What raises ``ValueError`` here and not in the JAX twin:
+
+* ``dtype`` other than ``"float32"`` (``NOT_PORTED``);
+* refine-pass windows beyond the resampling kernels' limits;
+* CWS with ``cws_interp="bicubic"``, a ``shift_variant`` other than
+  ``"rolls"`` and a refine pass: the JAX engine sends that combination to
+  its XLA bicubic shift, which the port does not have.
 """
 from __future__ import annotations
 
@@ -38,15 +51,6 @@ def def_tile(wind_size: int, margin: int, interp: str) -> int:
 
 # knob -> predicate on its value that is true when the value is not ported
 NOT_PORTED = {
-    "window_weight": lambda v: v is not None,
-    "correlation": lambda v: v == "rpc",
-    "subpixel": lambda v: v == "gauss2d",
-    "infill": lambda v: v == "fused",
-    "median_filter": lambda v: v is not None,
-    "u_limits": lambda v: v is not None,
-    "v_limits": lambda v: v is not None,
-    "global_std": lambda v: v is not None,
-    "second_peak_fallback": lambda v: bool(v),
     "dtype": lambda v: v != "float32",
 }
 
@@ -65,31 +69,31 @@ class PIVConfig:
     validate: bool = True
     val_ratio: float = 1.2
     validation_window: int = 3
-    infill: str = "host"  # "host" | "none" ("fused" not ported)
+    infill: str = "host"  # "host" | "fused" (on the device) | "none"
     dtype: str = "float32"
     use_pallas: str = "auto"  # TPU lowering only: no effect
     pallas_interpret: bool = False  # TPU lowering only: no effect
     edge_exact: bool = True  # flat-wrap padding of the shifted frames
     max_shift: Optional[int] = None  # shift clamp, default wind // 2
-    shift_variant: str = "rolls"  # TPU lowering only: no effect
+    shift_variant: str = "rolls"  # "rolls" | "bf16" | "lanephases" | "mxu" | "phases"
     shift_maps: str = "rows"  # TPU lowering only: no effect
     correlator: str = "auto"  # TPU lowering only: always f32 torch.fft
     peakfit: str = "xla"  # "xla" (torch ops) | "pallas" (fused kernel)
-    subpixel: str = "gauss3"  # "gauss3" ("gauss2d" not ported)
+    subpixel: str = "gauss3"  # "gauss3" | "gauss2d" (torch-op fit only)
     dft_precision: str = "high"  # TPU lowering only: always f32 torch.fft
     complex_mm: str = "real"  # TPU lowering only: no effect
     fused: str = "auto"  # "auto" | "off" | "split" | "on" (pass fusion)
-    median_filter: Optional[str] = None  # not ported
+    median_filter: Optional[str] = None  # None | "median" | "normmedian"
     median_threshold: float = 2.0
-    u_limits: Optional[Tuple[float, float]] = None  # not ported
-    v_limits: Optional[Tuple[float, float]] = None  # not ported
-    global_std: Optional[float] = None  # not ported
+    u_limits: Optional[Tuple[float, float]] = None  # (min, max) px
+    v_limits: Optional[Tuple[float, float]] = None  # (min, max) px
+    global_std: Optional[float] = None  # mean +- k*sigma over valid vectors
     cws_interp: str = "bilinear"  # "bilinear" | "bicubic" (CWS and DEF)
     def_margin: int = 2  # DEF only
-    window_weight: Optional[str] = None  # not ported
-    correlation: str = "scc"  # "scc" ("rpc" not ported)
+    window_weight: Optional[str] = None  # None | "gaussian"
+    correlation: str = "scc"  # "scc" | "rpc" (robust phase correlation)
     rpc_diameter: float = 2.8
-    second_peak_fallback: bool = False  # not ported
+    second_peak_fallback: bool = False  # vector recovery at invalid sites
     fallback_threshold: float = 2.0
     extract_variant: str = "stack"  # TPU lowering only: no effect
 
@@ -196,8 +200,14 @@ class PIVConfig:
             if unported(value):
                 raise ValueError(
                     f"{knob}={value!r} is not ported to the PyTorch engine yet")
-        # refine-pass windows beyond the resampling kernels' limits
         bicubic = self.cws_interp == "bicubic"
+        if (bicubic and self.multipass_mode == "CWS" and self.multipass > 1
+                and self.shift_variant != "rolls"):
+            raise ValueError(
+                f"shift_variant={self.shift_variant!r} with cws_interp="
+                f"'bicubic' needs the XLA bicubic shift, which is not ported "
+                f"(the bicubic kernel exists for 'rolls' only)")
+        # refine-pass windows beyond the resampling kernels' limits
         for p, (w, _) in enumerate(self.pass_schedule()[1:], start=2):
             if self.multipass_mode == "DEF":
                 T = def_tile(w, self.def_margin, self.cws_interp)

@@ -1,8 +1,10 @@
 // The bilinear window shift of one window by one block: the clamped
 // (w+1)^2 tile staged in shared memory, and the blend of its four corner
 // slices with per-window scalar weights.  Shared by shift_windows.cu (the
-// windows go to device memory) and fused_pass.cu (they stay in the block),
-// so both produce the same windows bit for bit.
+// windows go to device memory), fused_pass.cu (they stay in the block) and
+// the shift variants (shift_windows_{bf16,phases,lanephases,mxu}.cu, which
+// stage the tile in other ways and blend with the same code), so all
+// produce the same windows bit for bit.
 //
 // Numerics: the weights and the blend use explicitly rounded
 // multiplications and additions (__fmul_rn / __fadd_rn / __fsub_rn), in
@@ -50,16 +52,48 @@ __device__ __forceinline__ Blend blend_weights(float fy, float fx) {
   return b;
 }
 
+// The shifted window's pixel from its four tile corners: t11 the floor
+// corner, t21 its right neighbour, t12 the one below, t22 the diagonal.
+__device__ __forceinline__ float blend_corners(float t11, float t21, float t12,
+                                               float t22, const Blend& b) {
+  if (b.copy) return t11;
+  float acc = __fmul_rn(t11, b.w11);
+  acc = __fadd_rn(acc, __fmul_rn(t21, b.w21));
+  acc = __fadd_rn(acc, __fmul_rn(t12, b.w12));
+  acc = __fadd_rn(acc, __fmul_rn(t22, b.w22));
+  return acc;
+}
+
 // The shifted window's pixel whose floor corner is t[0] in a tile of row
 // length T.
 __device__ __forceinline__ float blend_pixel(const float* t, int T,
                                              const Blend& b) {
-  if (b.copy) return t[0];
-  float acc = __fmul_rn(t[0], b.w11);
-  acc = __fadd_rn(acc, __fmul_rn(t[1], b.w21));
-  acc = __fadd_rn(acc, __fmul_rn(t[T], b.w12));
-  acc = __fadd_rn(acc, __fmul_rn(t[T + 1], b.w22));
-  return acc;
+  return blend_corners(t[0], t[1], t[T], t[T + 1], b);
+}
+
+// The clamped origin of window `n` (row-major over a grid of `n_cols`
+// columns) shifted by (dy, dx): the (ty, tx) of its T x T tile.
+__device__ __forceinline__ void tile_origin(int n, int n_cols, int step, int off,
+                                            int dy, int dx, int Hp, int Wp,
+                                            int T, int* ty, int* tx) {
+  const int r = n / n_cols;
+  const int c = n - r * n_cols;
+  *ty = min(max(r * step + off + dy, 0), Hp - T);
+  *tx = min(max(c * step + off + dx, 0), Wp - T);
+}
+
+// One 16-byte asynchronous copy from device to shared memory; both
+// addresses are 16-byte aligned.  `cp_async_wait` waits for the thread's
+// copies; the caller synchronises the block afterwards.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace piv

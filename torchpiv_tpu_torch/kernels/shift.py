@@ -1,12 +1,20 @@
 """Wrapper of the hand-written CUDA window-shift kernels
-(``csrc/shift_windows.cu`` and ``csrc/shift_windows_bicubic.cu``), the port
-of ``shift_windows_pallas``.
+(``csrc/shift_windows.cu``, ``csrc/shift_windows_bicubic.cu`` and the four
+bilinear variants ``csrc/shift_windows_{bf16,lanephases,mxu,phases}.cu``),
+the port of ``shift_windows_pallas``.
 
 For CPU tensors it runs the plain PyTorch version
-(``ops.shifts.blend_reference`` or ``blend_reference_bicubic``); for CUDA
-tensors it launches the kernel on the current stream or raises.
-``shift_windows.launches`` counts launches of the bilinear kernel and
-``shift_windows_bicubic.launches`` those of the bicubic one.
+(``ops.shifts.blend_reference_variant`` or ``blend_reference_bicubic``); for
+CUDA tensors it launches the kernel on the current stream or raises: a
+variant never steps down to another kernel or to the plain version.
+``shift_windows.launches`` counts launches of the bilinear kernel
+(``variant="rolls"``), ``shift_windows_bicubic.launches`` those of the
+bicubic one, and ``shift_windows_<variant>.launches`` those of a variant.
+
+The variants take what the TPU wrapper takes for them: bilinear only, no
+``packed`` output, float32 output.  ``"bf16"``, ``"mxu"`` and ``"phases"``
+read the padded frame cast to bfloat16 (round to nearest even, after the
+flat-wrap pad); ``"lanephases"`` reads it in float32.
 
 ``packed=True`` (bilinear only) writes the lane-packed layout of the JAX
 package's pass-fusion kernels (``ops/packing.py``) straight from the kernel.
@@ -21,8 +29,9 @@ import torch
 
 from ..config import MAX_BICUBIC_WIND, MAX_SHIFT_WIND
 from ..ops.packing import pack_windows, packed_width
-from ..ops.shifts import (ShiftOperands, blend_reference,
-                          blend_reference_bicubic, shift_operands)
+from ..ops.shifts import (BF16_VARIANTS, VARIANTS, ShiftOperands,
+                          blend_reference_bicubic, blend_reference_variant,
+                          shift_operands)
 from . import _build
 
 # the limits of the TPU kernels, kept so that both engines take the same
@@ -63,6 +72,68 @@ def launch(ops: ShiftOperands, wind_size: int, interp: str = "bilinear",
     return out
 
 
+PHASES = 8  # copies in the "phases" table: bfloat16 elements in 16 bytes
+
+
+def variant_frame(ops: ShiftOperands, variant: str) -> torch.Tensor:
+    """The frame a variant's kernel reads: ``ops.frame`` with its rows
+    padded with zeros to the pitch the kernel's vector loads need (the
+    clamps keep every tile inside the unpadded width), in bfloat16 for
+    ``BF16_VARIANTS``."""
+    Wp = ops.frame.shape[-1]
+    if variant in BF16_VARIANTS:
+        pitch = -(-(Wp + 2) // 8) * 8
+    else:
+        pitch = -(-(Wp + 4) // 4) * 4
+    frame = ops.frame
+    if variant in BF16_VARIANTS:  # zeros pad alike before and after the cast
+        frame = frame.to(torch.bfloat16)
+    return torch.nn.functional.pad(frame, (0, pitch - Wp)).contiguous()
+
+
+def launch_variant(ops: ShiftOperands, wind_size: int, variant: str,
+                   max_shift: int, frame: Optional[torch.Tensor] = None,
+                   stages: int = 3) -> torch.Tensor:
+    """Launch the kernel of ``variant`` on CUDA ``ShiftOperands`` ->
+    ``[B, N, w, w]``.  ``frame`` is ``variant_frame(ops, variant)`` when the
+    caller has it already.  ``stages`` (``"phases"`` only, for timing) is 1
+    for the prologue that fills the phase table alone, 2 for the shift alone
+    from a table that holds whatever its buffer held, 3 for both."""
+    name = f"shift_windows_{variant}"
+    B, Hp, Wp = ops.frame.shape
+    dev = ops.frame.device
+    if frame is None:
+        frame = variant_frame(ops, variant)
+    pitch = frame.shape[-1]
+    out = torch.empty((B, ops.n_rows * ops.n_cols, wind_size, wind_size),
+                      dtype=torch.float32, device=dev)
+    maps = (ops.dy.data_ptr(), ops.dx.data_ptr(), ops.fy.data_ptr(),
+            ops.fx.data_ptr(), out.data_ptr())
+    grid = (ops.n_rows, ops.n_cols, wind_size, ops.step, ops.off)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if variant == "phases":
+            tpitch = -(-(Wp + 8) // 8) * 8
+            table = torch.empty((B, PHASES, Hp, tpitch), dtype=torch.bfloat16,
+                                device=dev)
+            fn = _build.function(
+                name, f"{name}_f32",
+                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+            rc = fn(frame.data_ptr(), table.data_ptr(), *maps, B, Hp, Wp, pitch,
+                    tpitch, *grid, stages, stream)
+        else:
+            extra = (max_shift,) if variant == "lanephases" else ()
+            fn = _build.function(
+                name, f"{name}_f32",
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * (9 + len(extra))
+                + [ctypes.c_void_p])
+            rc = fn(frame.data_ptr(), *maps, B, Hp, Wp, pitch, *grid, *extra,
+                    stream)
+    _build.check_launch(name, rc)
+    VARIANT_WRAPPERS[variant].launches += 1
+    return out
+
+
 def shift_windows(
     frame: torch.Tensor,
     vel_x: torch.Tensor,
@@ -76,15 +147,29 @@ def shift_windows(
     interp: str = "bilinear",
     out_dtype: torch.dtype = torch.float32,
     packed: bool = False,
+    variant: str = "rolls",
 ) -> torch.Tensor:
     """Per-window shifted windows ``[B, N, w, w]`` float32 from ``[B, H, W]``
     frames and ``[B, N]`` shifts in pixels (``[N, w, w]`` from ``[H, W]`` and
     ``[N]``); integer-valued shifts give the DWS integer tile copy.
     ``interp`` is ``"bilinear"`` or ``"bicubic"`` (Keys, a = -0.5).
     ``packed`` gives the lane-packed ``[B, n_rows, w, Lp]`` layout instead
-    (``ops.packing.pack_windows`` of the standard output; bilinear only)."""
+    (``ops.packing.pack_windows`` of the standard output; bilinear only).
+    ``variant`` selects one of the bilinear kernels (``ops.shifts.VARIANTS``);
+    any other than ``"rolls"`` refuses bicubic, ``packed`` and an
+    ``out_dtype`` other than float32, as the TPU wrapper does."""
     if interp not in MAX_WIND:
         raise ValueError(f"unknown interp {interp!r}")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown shift variant {variant!r}")
+    if variant != "rolls":
+        if interp != "bilinear":
+            raise ValueError("bicubic requires the plain 'rolls' variant")
+        if packed:
+            raise ValueError("packed output requires the 'rolls' variant")
+        if out_dtype != torch.float32:
+            raise ValueError("out_dtype is supported by the 'rolls'/bicubic "
+                             "kernels only")
     if packed and interp != "bilinear":
         raise ValueError("packed output is bilinear only")
     if wind_size > MAX_WIND[interp]:
@@ -103,10 +188,15 @@ def shift_windows(
                          wind_size=wind_size, overlap=overlap,
                          max_shift=max_shift, flat_wrap=flat_wrap, interp=interp)
     if frame.device.type == "cpu":
-        blend = blend_reference_bicubic if interp == "bicubic" else blend_reference
-        out = blend(ops, wind_size)
+        if interp == "bicubic":
+            out = blend_reference_bicubic(ops, wind_size)
+        else:
+            out = blend_reference_variant(ops, wind_size, variant)
         if packed:
             out = pack_windows(out, ops.n_rows, ops.n_cols, wind_size)
+    elif variant != "rolls":
+        S = max_shift if max_shift is not None else max(wind_size // 2, 1)
+        out = launch_variant(ops, wind_size, variant, S)
     else:
         out = launch(ops, wind_size, interp, packed)
     return out if batched else out[0]
@@ -118,5 +208,35 @@ def shift_windows_bicubic(frame, vel_x, vel_y, **kw) -> torch.Tensor:
     return shift_windows(frame, vel_x, vel_y, interp="bicubic", **kw)
 
 
+def shift_windows_bf16(frame, vel_x, vel_y, **kw) -> torch.Tensor:
+    """``shift_windows`` with ``variant="bf16"``: the half-width-data kernel
+    under its own name and launch count."""
+    return shift_windows(frame, vel_x, vel_y, variant="bf16", **kw)
+
+
+def shift_windows_lanephases(frame, vel_x, vel_y, **kw) -> torch.Tensor:
+    """``shift_windows`` with ``variant="lanephases"``: the kernel that
+    stages one strip for a run of windows."""
+    return shift_windows(frame, vel_x, vel_y, variant="lanephases", **kw)
+
+
+def shift_windows_mxu(frame, vel_x, vel_y, **kw) -> torch.Tensor:
+    """``shift_windows`` with ``variant="mxu"``: the kernel that places the
+    tile with tensor-core selection products."""
+    return shift_windows(frame, vel_x, vel_y, variant="mxu", **kw)
+
+
+def shift_windows_phases(frame, vel_x, vel_y, **kw) -> torch.Tensor:
+    """``shift_windows`` with ``variant="phases"``: the kernel that copies
+    aligned rows from a phase table of the frame."""
+    return shift_windows(frame, vel_x, vel_y, variant="phases", **kw)
+
+
+VARIANT_WRAPPERS = {"bf16": shift_windows_bf16,
+                    "lanephases": shift_windows_lanephases,
+                    "mxu": shift_windows_mxu, "phases": shift_windows_phases}
+
 shift_windows.launches = 0
 shift_windows_bicubic.launches = 0
+for _wrapper in VARIANT_WRAPPERS.values():
+    _wrapper.launches = 0

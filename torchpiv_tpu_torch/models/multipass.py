@@ -26,6 +26,28 @@ Pass semantics are the JAX engine's:
 ``peakfit="pallas"`` runs the fused peak-fit kernel instead of the chain of
 torch ops (``"xla"``, the default); both give the same fields.
 
+``shift_variant`` selects the bilinear shift kernel of the CWS and DWS
+passes (``kernels.shift``: ``"rolls"``, ``"bf16"``, ``"lanephases"``,
+``"mxu"``, ``"phases"``), unfused and under ``fused="split"``; an unknown
+name runs ``"rolls"``, as in the JAX engine.  ``fused="on"`` and DEF ignore
+it.  Three of the variants read the frame in bfloat16, which changes the
+result for frames whose values are not exact in bfloat16.
+
+Robust-correlation and validation knobs, in the JAX engine's order:
+
+* ``frame_mask`` (a static region-of-interest mask, True = excluded): the
+  masked pixels are zeroed before every pass, and a window whose masked
+  share reaches ``mask_threshold`` is invalid with zero displacement on
+  every pass;
+* ``window_weight="gaussian"``: a separable Gaussian taper (sigma = w/4) on
+  every window before correlation, after the shift; pass 1 then normalises
+  by the mean explicitly;
+* ``correlation="rpc"``: robust phase correlation (``ops.correlate``);
+* ``subpixel="gauss2d"``: the 9-point fit (``ops.peakfit``);
+* after the last pass: velocity limits and the global sigma test, the
+  median filter, the second-peak fallback (three rounds, per pair), and
+  ``infill="fused"`` (``ops.infill.fused_infill``).
+
 Pass fusion (``fused``), with the JAX engine's rules:
 
 * ``"split"``: every pass correlates and fits in one kernel
@@ -48,7 +70,7 @@ enabled, because a TF32 predictor flips CWS integer-crossing decisions.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,10 +83,14 @@ from ..kernels.fused_pass import fused_piv_pass
 from ..kernels.peakfit import peakfit
 from ..kernels.shift import shift_windows
 from ..ops.corrfit import corrfit_supported
-from ..ops.correlate import correlate_fft
+from ..ops.correlate import correlate_fft, mean_normalize, rpc_filter
 from ..ops.geometry import get_coordinates, get_field_shape, per_window_origins
+from ..ops.infill import fused_infill
 from ..ops.peakfit import correlation_to_displacement
+from ..ops.shifts import VARIANTS
 from ..ops.spline import upsample_matrices
+from ..ops.validation import (apply_median_filter, global_std_test,
+                              second_peak_acceptance, velocity_limits_test)
 from ..ops.windows import extract_windows
 from ..utils.device import check_no_tf32, resolve_device
 
@@ -83,16 +109,47 @@ def _gradient(f: torch.Tensor, h: float, dim: int) -> torch.Tensor:
 class MultipassPIV(nn.Module):
     """The multipass engine for one frame shape, on one device."""
 
-    def __init__(self, config: PIVConfig, device="auto"):
+    def __init__(self, config: PIVConfig, device="auto",
+                 frame_mask: Optional[np.ndarray] = None,
+                 mask_threshold: float = 0.5):
         super().__init__()
         self.config = config
         self.schedule = config.pass_schedule()
         H, W = config.frame_shape
         self.coords = [get_coordinates((H, W), w, o) for w, o in self.schedule]
         self.field_shapes = [get_field_shape((H, W), w, o) for w, o in self.schedule]
+        fm = ii = None
+        if frame_mask is not None:
+            if not 0.0 <= mask_threshold <= 1.0:
+                raise ValueError("mask_threshold must be in [0, 1]")
+            fm = np.asarray(frame_mask).astype(bool)
+            if fm.shape != (H, W):
+                raise ValueError(
+                    f"frame_mask shape {fm.shape} != frame {config.frame_shape}")
+            ii = np.zeros((H + 1, W + 1), np.int64)  # integral image
+            ii[1:, 1:] = fm.astype(np.int64).cumsum(0).cumsum(1)
+        self.register_buffer("frame_mask", None if fm is None else torch.from_numpy(fm))
         for p, (w, o) in enumerate(self.schedule):
             r0, c0 = per_window_origins((H, W), w, o)
             self.register_buffer(f"origins_{p}", torch.from_numpy(np.stack([r0, c0])))
+            masked = None
+            if ii is not None:
+                cnt = (ii[r0 + w, c0 + w] - ii[r0, c0 + w]
+                       - ii[r0 + w, c0] + ii[r0, c0])
+                # threshold 0 means "any masked pixel", not "every window"
+                need = max(1, int(np.ceil(mask_threshold * w * w)))
+                masked = torch.from_numpy((cnt >= need).reshape(self.field_shapes[p]))
+            self.register_buffer(f"window_masked_{p}", masked)
+            weight = None
+            if config.window_weight is not None:
+                x = (np.arange(w) - (w - 1) / 2.0) / (w / 4.0)
+                g = np.exp(-0.5 * x * x).astype(np.float32)
+                weight = torch.from_numpy(np.outer(g, g))
+            self.register_buffer(f"weight_{p}", weight)
+            rpc = None
+            if config.correlation == "rpc":
+                rpc = rpc_filter(w, config.rpc_diameter)
+            self.register_buffer(f"rpc_{p}", rpc)
         for p in range(1, len(self.schedule)):
             x0, y0 = self.coords[p - 1]
             x1, y1 = self.coords[p]
@@ -120,6 +177,13 @@ class MultipassPIV(nn.Module):
                 for p in range(1, len(self.schedule))]
 
     @property
+    def window_masked(self) -> List[Optional[torch.Tensor]]:
+        """Per-pass bool ``[R, C]`` masks of the windows that ``frame_mask``
+        excludes (None without a mask)."""
+        return [getattr(self, f"window_masked_{p}")
+                for p in range(len(self.schedule))]
+
+    @property
     def final_coordinates(self) -> Tuple[np.ndarray, np.ndarray]:
         """(x, y) window-centre pixel coordinates of the final pass."""
         return self.coords[-1]
@@ -128,11 +192,45 @@ class MultipassPIV(nn.Module):
     def final_field_shape(self) -> Tuple[int, int]:
         return self.field_shapes[-1]
 
-    def _peakfit(self, corr, validate):
+    def _masked_frame(self, frame):
+        """Zero the excluded pixels (no-op without a mask)."""
+        if self.frame_mask is None:
+            return frame
+        return frame.masked_fill(self.frame_mask, 0.0)
+
+    def _apply_window_mask(self, p, u, v, inval):
+        """Force pass-p masked windows invalid with zero displacement."""
+        m = self.window_masked[p]
+        if m is None:
+            return u, v, inval
+        m = m.expand(u.shape)
+        return (u.masked_fill(m, 0.0), v.masked_fill(m, 0.0),
+                m if inval is None else inval | m)
+
+    def _correlate(self, p, aa, bb, dc_normalize=False):
+        """Raw circular cross-correlation of pass ``p``'s windows (the
+        minimum is subtracted in the peak fit); ``correlation="rpc"`` swaps
+        the spectrum product for robust phase correlation."""
+        return correlate_fft(aa, bb, dc_normalize,
+                             phase_filter=getattr(self, f"rpc_{p}"))
+
+    def _peakfit(self, corr, validate, want_second=False):
+        """Sub-pixel fit and validation on raw maps; ``want_second`` also
+        returns the second-peak candidates (torch-op chain only: the
+        configuration never combines it with the kernel)."""
         cfg = self.config
-        fit = peakfit if cfg.peakfit == "pallas" else correlation_to_displacement
-        return fit(corr.reshape(-1, *corr.shape[-2:]), validate, cfg.val_ratio,
-                   cfg.validation_window, min_subtract=True)
+        maps = corr.reshape(-1, *corr.shape[-2:])
+        if cfg.peakfit == "pallas" and not want_second:
+            return peakfit(maps, validate, cfg.val_ratio, cfg.validation_window,
+                           min_subtract=True)
+        return correlation_to_displacement(
+            maps, validate, cfg.val_ratio, cfg.validation_window,
+            min_subtract=True, fit=cfg.subpixel, return_second=want_second)
+
+    def _shift_variant(self) -> str:
+        """The bilinear shift kernel of the CWS and DWS passes."""
+        v = self.config.shift_variant
+        return v if v in VARIANTS else "rolls"
 
     def _fusable_windows(self) -> bool:
         """Every pass window is one the pass-fusion kernels take."""
@@ -171,11 +269,16 @@ class MultipassPIV(nn.Module):
             val_ratio=cfg.val_ratio, validation_window=cfg.validation_window,
             max_shift=cfg.max_shift, dc_normalize=dc_normalize)
 
-    def first_pass(self, frame_a: torch.Tensor, frame_b: torch.Tensor):
-        """Zero-order pass on float32 ``[B, H, W]`` frames."""
+    def first_pass(self, frame_a: torch.Tensor, frame_b: torch.Tensor,
+                   want_second: bool = False):
+        """Zero-order pass on float32 ``[B, H, W]`` frames (``forward`` has
+        zeroed the pixels that ``frame_mask`` excludes).  ``want_second``
+        (single-pass runs with the second-peak fallback) appends the
+        candidate displacement fields to the result."""
         cfg = self.config
         w, o = self.schedule[0]
         B = frame_a.shape[0]
+        cand = None
         if self._use_fused():
             # zero shifts: plain extraction; the mean normalisation scales
             # the map inside the kernel
@@ -189,15 +292,28 @@ class MultipassPIV(nn.Module):
             if self._use_split():
                 u, v, inval = self._corrfit(aa, bb, dc_normalize=True)
             else:
-                # mean normalisation folded into the spectrum product
-                corr = correlate_fft(aa, bb, dc_normalize=True)
-                u, v, inval = self._peakfit(corr, cfg.validate)
+                wgt = self.weight_0
+                if wgt is None:
+                    # mean normalisation folded into the spectrum product
+                    corr = self._correlate(0, aa, bb, dc_normalize=True)
+                else:
+                    # the fold assumes unweighted windows: normalise first
+                    corr = self._correlate(0, mean_normalize(aa) * wgt,
+                                           mean_normalize(bb) * wgt)
+                u, v, inval, *cand = self._peakfit(corr, cfg.validate, want_second)
         shape = (B, *self.field_shapes[0])
-        return (u.reshape(shape), v.reshape(shape),
-                None if inval is None else inval.reshape(shape))
+        u, v, inval = self._apply_window_mask(
+            0, u.reshape(shape), v.reshape(shape),
+            None if inval is None else inval.reshape(shape))
+        if want_second:
+            (cu, cv), = cand
+            return u, v, inval, (cu.reshape(shape), cv.reshape(shape))
+        return u, v, inval
 
-    def _refine_pass(self, p, frame_a, frame_b, u, v, inval):
-        """One CWS/DWS/DEF refinement pass from grid p-1 to grid p."""
+    def _refine_pass(self, p, frame_a, frame_b, u, v, inval, want_second=False):
+        """One CWS/DWS/DEF refinement pass from grid p-1 to grid p.
+        ``want_second`` (the last pass with the second-peak fallback)
+        appends the candidate fields ``2 * half-shift + second-peak fit``."""
         cfg = self.config
         w, o = self.schedule[p]
         B = frame_a.shape[0]
@@ -245,16 +361,22 @@ class MultipassPIV(nn.Module):
         else:
             if cfg.multipass_mode == "CWS":  # DWS stays the integer copy
                 kw.update(interp=cfg.cws_interp)
+            if kw.get("interp", "bilinear") == "bilinear":
+                kw.update(variant=self._shift_variant())
             aa = shift_windows(frame_a, -sx, -sy, **kw)
             bb = shift_windows(frame_b, sx, sy, **kw)
 
+        cand = None
         if fused_result is not None:
             du, dv, new_inval = fused_result
         elif self._use_split():
             du, dv, new_inval = self._corrfit(aa, bb)
         else:
-            corr = correlate_fft(aa, bb)
-            du, dv, new_inval = self._peakfit(corr, cfg.validate)
+            wgt = getattr(self, f"weight_{p}")
+            if wgt is not None:  # weights apply after the shift
+                aa, bb = aa * wgt, bb * wgt
+            corr = self._correlate(p, aa, bb)
+            du, dv, new_inval, *cand = self._peakfit(corr, cfg.validate, want_second)
         shape = (B, *self.field_shapes[p])
         du = du.reshape(shape)
         dv = dv.reshape(shape)
@@ -269,8 +391,56 @@ class MultipassPIV(nn.Module):
         if new_inval is not None:
             mask_u = mask_u | new_inval
             mask_v = mask_v | new_inval
-        return (torch.where(mask_u, u0, u_new), torch.where(mask_v, v0, v_new),
-                new_inval)
+        u, v, new_inval = self._apply_window_mask(
+            p, torch.where(mask_u, u0, u_new), torch.where(mask_v, v0, v_new),
+            new_inval)
+        if want_second:
+            # the same half-shift the first fit refines, plus the second
+            # peak's residual fit
+            (du2, dv2), = cand
+            return u, v, new_inval, (2.0 * u2 + du2.reshape(shape),
+                                     2.0 * v2 + dv2.reshape(shape))
+        return u, v, new_inval
+
+    def _apply_global_filters(self, u, v, inval):
+        """Velocity limits and the global mean +- k*sigma test; windows
+        that are already invalid (the static mask among them) stay out of
+        the sigma statistics."""
+        cfg = self.config
+        if cfg.u_limits is not None or cfg.v_limits is not None:
+            extra = velocity_limits_test(u, v, cfg.u_limits, cfg.v_limits)
+            inval = extra if inval is None else (inval | extra)
+        if cfg.global_std is not None:
+            inval = global_std_test(u, v, cfg.global_std, inval)
+        return inval
+
+    def _apply_second_peak_fallback(self, u, v, inval, cand):
+        """The vector-recovery ladder at invalid sites.  Two candidates are
+        tried per site: the vector already in place (at a site the peak
+        ratio flagged it is the predictor-reverted value) and the fit at the
+        second correlation peak.  Each is accepted only when it passes the
+        normalized-median test against valid neighbours
+        (``second_peak_acceptance``) and the velocity limits; masked windows
+        are never rescued.  Three rounds: vectors rescued in one round are
+        valid neighbours in the next, so clusters heal from the outside in.
+        Every pair of the batch is judged on its own field."""
+        cfg = self.config
+        cu, cv = cand
+        masked = self.window_masked[-1]
+
+        def hard_reject(fu, fv):
+            bad = velocity_limits_test(fu, fv, cfg.u_limits, cfg.v_limits)
+            return bad if masked is None else bad | masked
+
+        for _ in range(3):
+            for ccu, ccv in ((u, v), (cu, cv)):
+                ok = second_peak_acceptance(u, v, inval, ccu, ccv,
+                                            cfg.fallback_threshold)
+                ok = ok & ~hard_reject(ccu, ccv)
+                u = torch.where(ok, ccu, u)
+                v = torch.where(ok, ccv, v)
+                inval = inval & ~ok
+        return u, v, inval
 
     @torch.no_grad()
     def forward(self, frame_a: torch.Tensor, frame_b: torch.Tensor):
@@ -285,11 +455,25 @@ class MultipassPIV(nn.Module):
                 frame_b.shape != frame_a.shape:
             raise ValueError(f"frames {tuple(frame_a.shape)}/{tuple(frame_b.shape)} "
                              f"do not match frame_shape {self.config.frame_shape}")
-        frame_a = frame_a.to(self.device, torch.float32)
-        frame_b = frame_b.to(self.device, torch.float32)
-        u, v, inval = self.first_pass(frame_a, frame_b)
-        for p in range(1, len(self.schedule)):
-            u, v, inval = self._refine_pass(p, frame_a, frame_b, u, v, inval)
+        cfg = self.config
+        frame_a = self._masked_frame(frame_a.to(self.device, torch.float32))
+        frame_b = self._masked_frame(frame_b.to(self.device, torch.float32))
+        last = len(self.schedule) - 1
+        want = cfg.second_peak_fallback
+        u, v, inval, *cand = self.first_pass(frame_a, frame_b,
+                                             want_second=want and last == 0)
+        for p in range(1, last + 1):
+            u, v, inval, *cand = self._refine_pass(
+                p, frame_a, frame_b, u, v, inval, want_second=want and p == last)
+        inval = self._apply_global_filters(u, v, inval)
+        if cfg.median_filter is not None:
+            inval = apply_median_filter(u, v, inval, cfg.median_filter,
+                                        cfg.median_threshold)
+        if cand and inval is not None:
+            u, v, inval = self._apply_second_peak_fallback(u, v, inval, cand[0])
+        if cfg.infill == "fused" and inval is not None:
+            u = fused_infill(u.masked_fill(inval, torch.nan), inval)
+            v = fused_infill(v.masked_fill(inval, torch.nan), inval)
         if single:
             u, v = u[0], v[0]
             inval = None if inval is None else inval[0]

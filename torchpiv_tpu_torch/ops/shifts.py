@@ -21,6 +21,13 @@ inside ``ky`` as the kernel's does.  Integer shifts give the weights
 ``(0, 1, 0, 0)`` exactly, so they reproduce the integer copy without a
 special case.  The flat-wrap pad is ``S + 2``.
 
+Variants (``variant=``, bilinear only; the TPU kernels of
+``torchpiv_tpu/experimental/shift_variants.py``): ``"bf16"``, ``"mxu"`` and
+``"phases"`` read the padded frame rounded to bfloat16 (round to nearest
+even, after the flat-wrap pad, as the TPU wrapper casts it) and blend in
+float32; ``"lanephases"`` reads the float32 frame.  On a frame whose values
+are exact in bfloat16 (8-bit grey levels) every variant equals ``"rolls"``.
+
 These differ from the XLA ``cws_shift``/``dws_shift`` of the JAX package
 (per-pixel weights, no clamp).  With ``flat_wrap`` the frame is padded by
 ``flat_wrap_pad`` so edge windows reproduce the reference's flat-index
@@ -181,6 +188,23 @@ def blend_reference(ops: ShiftOperands, wind_size: int) -> torch.Tensor:
     return torch.where((fy == 0.0) | (fx == 0.0), f11, blend)
 
 
+VARIANTS = ("rolls", "bf16", "lanephases", "mxu", "phases")
+BF16_VARIANTS = ("bf16", "mxu", "phases")  # read a bfloat16 padded frame
+
+
+def blend_reference_variant(ops: ShiftOperands, wind_size: int,
+                            variant: str = "rolls") -> torch.Tensor:
+    """The arithmetic of the bilinear kernel ``variant`` on
+    ``ShiftOperands`` -> ``[B, N, w, w]``: ``blend_reference``, for the
+    bfloat16 variants on the padded frame rounded to bfloat16."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown shift variant {variant!r}")
+    if variant in BF16_VARIANTS:
+        rounded = ops.frame.to(torch.bfloat16).to(torch.float32)
+        ops = ops._replace(frame=rounded)
+    return blend_reference(ops, wind_size)
+
+
 def cubic_weights(t: torch.Tensor):
     """Keys cubic-convolution weights (a = -0.5) of the four taps at
     ``floor - 1 .. floor + 2`` for the fraction ``t``, in the TPU kernel's
@@ -231,15 +255,21 @@ def shift_windows_reference(
     max_shift: Optional[int] = None,
     flat_wrap: bool = True,
     interp: str = "bilinear",
+    variant: str = "rolls",
 ) -> torch.Tensor:
     """Shifted windows ``[B, N, w, w]`` float32 from ``[B, H, W]`` frames and
-    ``[B, N]`` per-window shifts (``[N, w, w]`` from ``[H, W]`` and ``[N]``)."""
+    ``[B, N]`` per-window shifts (``[N, w, w]`` from ``[H, W]`` and ``[N]``);
+    ``variant`` (bilinear only) is one of ``VARIANTS``."""
+    if variant != "rolls" and interp != "bilinear":
+        raise ValueError("bicubic requires the plain 'rolls' variant")
     batched = frame.dim() == 3
     if not batched:
         frame, vel_x, vel_y = frame[None], vel_x[None], vel_y[None]
     ops = shift_operands(frame, vel_x, vel_y, frame_shape=frame_shape,
                          wind_size=wind_size, overlap=overlap,
                          max_shift=max_shift, flat_wrap=flat_wrap, interp=interp)
-    blend = blend_reference_bicubic if interp == "bicubic" else blend_reference
-    out = blend(ops, wind_size)
+    if interp == "bicubic":
+        out = blend_reference_bicubic(ops, wind_size)
+    else:
+        out = blend_reference_variant(ops, wind_size, variant)
     return out if batched else out[0]

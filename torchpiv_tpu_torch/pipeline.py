@@ -24,6 +24,7 @@ import torch
 
 from .config import PIVConfig
 from .io.dataset import PIVDataset
+from .io.decode import imread_gray
 from .io.prefetch import PairPrefetcher
 from .models.multipass import MultipassPIV
 from .ops.infill import fill_missing_values, interpolate_borders
@@ -40,12 +41,23 @@ def finalize_fields(
     y: np.ndarray,
     scale: float,
     dt: float,
+    static_mask: Optional[np.ndarray] = None,
 ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
     """The reference's per-pair tail: NaN the invalid vectors, border-interp
     + Delaunay infill (None = skip the pair when more than half is invalid),
-    flip to the physical y-axis, convert to mm and m/s."""
+    flip to the physical y-axis, convert to mm and m/s.
+
+    ``static_mask`` marks the windows that a region-of-interest mask
+    excludes: they are reported as zero displacement, not infilled, and do
+    not count towards the skip rule."""
     u = np.array(u, dtype=np.float64)
     v = np.array(v, dtype=np.float64)
+    if static_mask is not None:
+        static_mask = np.asarray(static_mask, dtype=bool)
+        u[static_mask] = 0.0
+        v[static_mask] = 0.0
+        if invalid is not None:
+            invalid = np.asarray(invalid) & ~static_mask
     if invalid is not None:
         invalid = np.asarray(invalid)
         u[invalid] = np.nan
@@ -73,13 +85,30 @@ def packed_forward(engine: MultipassPIV, frame_a: torch.Tensor,
     return torch.stack([u, v, inval.to(u.dtype)], dim=1)
 
 
+def resolve_frame_mask(mask):
+    """A region-of-interest mask argument as a bool array: ``None``, a
+    ``[H, W]`` bool-like array (True = excluded), or the path of a mask
+    image whose non-zero pixels are excluded."""
+    if mask is None:
+        return None
+    if isinstance(mask, str):
+        arr = imread_gray(mask)
+        if arr is None:
+            raise ValueError(f"unreadable mask image: {mask}")
+        return arr > 0
+    return np.asarray(mask).astype(bool)
+
+
 class OfflinePIV:
     """Folder -> generator of (x, y, u, v) fields.  The reference API.
 
     Keyword-only knobs beyond the reference signature: ``batch_size``
     (pairs per engine call), ``validate``/``val_ratio``, ``decode_threads``,
     ``skip_pairs``/``max_pairs``, and any ``PIVConfig`` field via
-    ``engine_options``.  ``device`` defaults to the CUDA card.
+    ``engine_options``.  ``engine_options`` also takes ``frame_mask`` (a
+    ``[H, W]`` bool array, True = excluded, or the path of a mask image) and
+    ``mask_threshold``: masked windows come out with zero displacement.
+    ``device`` defaults to the CUDA card.
     """
 
     def __init__(
@@ -113,8 +142,8 @@ class OfflinePIV:
             raise ValueError("frame preprocessing is not ported to the "
                              "PyTorch engine yet (preprocess='none')")
         engine_options = dict(engine_options or {})
-        if "frame_mask" in engine_options or "mask_threshold" in engine_options:
-            raise ValueError("frame_mask is not ported to the PyTorch engine yet")
+        frame_mask = resolve_frame_mask(engine_options.pop("frame_mask", None))
+        mask_threshold = engine_options.pop("mask_threshold", 0.5)
         self._dt = dt
         self._scale = scale
         self._batch = max(1, batch_size)
@@ -142,7 +171,9 @@ class OfflinePIV:
             if frame_a is not None:
                 cfg = PIVConfig(frame_shape=tuple(frame_a.shape),
                                 **self._engine_kwargs)
-                self._engine = MultipassPIV(cfg, device=self._device)
+                self._engine = MultipassPIV(cfg, device=self._device,
+                                            frame_mask=frame_mask,
+                                            mask_threshold=mask_threshold)
                 break
 
     @property
@@ -157,7 +188,12 @@ class OfflinePIV:
             return
         engine = self._engine
         x, y = engine.final_coordinates
+        # the host NaN + infill tail runs only for infill="host": "fused"
+        # is filled on the device already, "none" asks for raw vectors
         tail_validates = engine.config.validate and engine.config.infill == "host"
+        static_mask = engine.window_masked[-1]
+        if static_mask is not None:
+            static_mask = static_mask.cpu().numpy()
         prefetch = PairPrefetcher(self._dataset, self._batch, self._device,
                                   num_threads=self._decode_threads, depth=2)
 
@@ -165,7 +201,7 @@ class OfflinePIV:
             return [(pid, finalize_fields(
                         packed[i, 0], packed[i, 1],
                         packed[i, 2] > 0.5 if tail_validates else None,
-                        x, y, self._scale, self._dt))
+                        x, y, self._scale, self._dt, static_mask))
                     for i, pid in enumerate(ids)]
 
         with ThreadPoolExecutor(max_workers=max(1, self._decode_threads)) as pool:
