@@ -7,12 +7,16 @@ Phases, each failing loudly:
 
 1. environment: torch/CUDA versions, the card's name and power limit, TF32
    off;
-2. build every CUDA kernel of the package from its sources;
+2. build every CUDA kernel of the package from its sources, and print what
+   the compiler made of each instance of the two pass-fusion kernels
+   (registers a thread, shared memory a block; no instance may spill);
 3. each kernel (bilinear and bicubic window shift, the four bilinear shift
    variants, window deformation, fused peak fit, correlate-and-fit, whole
    pass) against its plain PyTorch
    version on the card, at the main paths' shapes (2048x2048 frames, pass 2:
-   w32/o16, a batch of 4; the fits at pass 1, w64/o32, too), with times:
+   w32/o16, a batch of 4; the fits at pass 1, w64/o32, too, and the two
+   pass-fusion kernels at w16/o8 and w128/o64 as well: the instances with
+   several windows a block and with the most shared memory), with times:
    kernel, plain version, bound, and a yardstick that computes the same
    function where there is one (``grid_sample`` bilinear; for the two
    pass-fusion kernels the port's own unfused chain); the packed output of
@@ -75,6 +79,14 @@ PATCH = 48  # their side in px
 WALL = 256  # columns that the robust path's mask excludes, from the left
 ROBUST = dict(median_filter="normmedian", u_limits=(-8.0, 8.0),
               v_limits=(-8.0, 8.0), global_std=5.0, second_peak_fallback=True)
+# ms per launch that this script read on an NVIDIA H100 80GB HBM3 at 700 W
+# before the kernels of these rows were redesigned (printed beside this
+# run's readings, never into the kernels line)
+EARLIER_MS = {"correlate_peakfit": {"pass2": 2.213, "pass1": 1.827},
+              "fused_piv_pass": {"pass2": 2.622, "pass1": 2.227},
+              "shift_windows_mxu": {"pass2": 0.895}}
+FUSED_SHAPES = (("pass2", (32, 16), False), ("pass1", (64, 32), True),
+                ("w16", (16, 8), False), ("w128", (128, 64), True))
 VARIANT_LINES = {"bf16": 29, "lanephases": 111, "mxu": 195, "phases": 294}
 CSRC = "torchpiv_tpu_torch/kernels/csrc/"
 
@@ -122,6 +134,13 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _build.build()
     log(f"build: {_build.sources()} in {time.perf_counter() - t0:.2f} s")
+    from torchpiv_tpu_torch.kernels.corrfit import describe
+
+    for name in ("corrfit", "fused_pass"):
+        for w in (4, 8, 16, 32, 64, 128):
+            info = describe(name, w)
+            log(f"instance {name} w{w}: {json.dumps(info)}")
+            check(info["local_bytes"] == 0, f"{name} w{w} spills: {info}")
 
 
 def shift_grid(ops, w: int) -> torch.Tensor:
@@ -339,9 +358,13 @@ def phase_shift_variants(frames: torch.Tensor) -> list:
         n_bytes = B * (Hp * Wp * (2 if rounds else 4) + n * 4 * 4 + n * w * w * 4)
         n_flops = B * n * w * w * 7
         n_bf16 = 0.0
-        if variant == "mxu":  # two banded selection products a window
-            Tp, KP = -(-(w + 1) // 16) * 16, -(-(w + 8) // 16) * 16
-            n_bf16 = B * n * 2.0 * 2 * 16 * (KP + Tp) * Tp
+        if variant == "mxu":  # two banded selection products a window:
+            # per 16 rows and 16 columns of the padded tile, four products
+            # of 16 x 16 by 16 x 8 for Wy @ block and three for (...) @ Wx
+            Tp = -(-(w + 1) // 16) * 16
+            n_bf16 = B * n * (Tp // 16) ** 2 * 7.0 * 2 * 16 * 16 * 8
+        if name in EARLIER_MS:
+            compare_with_earlier(name, {"pass2": dict(ms=ms, library_ms=library_ms)})
         rows.append(kernel_row(
             name, f"{name}.cu",
             f"torchpiv_tpu/experimental/shift_variants.py:{VARIANT_LINES[variant]}",
@@ -577,6 +600,23 @@ def fit_agreement(got, want, label: str) -> float:
     return worst
 
 
+def compare_with_earlier(name: str, passes: dict) -> None:
+    """Print this run's times of a redesigned kernel beside the earlier
+    design's, and hold it to what the redesign was for: faster than the
+    earlier design at both pass shapes, and at most 0.4 of the unfused chain
+    (or, a shift, no slower than ``grid_sample``) at the pass-2 shape."""
+    for label, was in EARLIER_MS[name].items():
+        p = passes[label]
+        log(f"{name} {label}: {p['ms']:.4f} ms now, {was} ms before the redesign; "
+            f"yardstick {p['library_ms']:.4f} ms, ratio "
+            f"{p['ms'] / p['library_ms']:.3f}")
+        check(p["ms"] < was, f"{name} {label}: {p['ms']} ms is no faster than {was}")
+    limit = 1.0 if name == "shift_windows_mxu" else 0.4
+    p2 = passes["pass2"]
+    check(p2["ms"] <= limit * p2["library_ms"],
+          f"{name}: {p2['ms']} ms against {p2['library_ms']} ms of its yardstick")
+
+
 def pass2_shifts(n: int, g, S: int = 16):
     """Per-window shifts of the two frames for a CWS-like pass 2: a common
     offset in +-(S - 2) px, so the tiles reach the clamp and the pad, with
@@ -606,13 +646,14 @@ def phase_corrfit_kernel(frames_a: torch.Tensor, frames_b: torch.Tensor) -> dict
     dev = frames_a.device
     passes = {}
     max_err = 0.0
-    for label, (w, o), dc in (("pass2", (32, 16), False), ("pass1", (64, 32), True)):
+    for label, (w, o), dc in FUSED_SHAPES:
         if dc:
             aa = extract_windows(frames_a, w, o)
             bb = extract_windows(frames_b, w, o)
         else:
             g = torch.Generator(device="cpu").manual_seed(2)
-            vxa, vya, vxb, vyb = (t.to(dev) for t in pass2_shifts(window_count(w, o), g))
+            vxa, vya, vxb, vyb = (t.to(dev) for t in pass2_shifts(
+                window_count(w, o), g, S=w // 2))
             kw = dict(frame_shape=FRAME, wind_size=w, overlap=o)
             aa = shift_windows(frames_a, vxa, vya, **kw)
             bb = shift_windows(frames_b, vxb, vyb, **kw)
@@ -639,15 +680,17 @@ def phase_corrfit_kernel(frames_a: torch.Tensor, frames_b: torch.Tensor) -> dict
                              bound_ms=bound_ms, bound_by=bound_by, n_bytes=n_bytes,
                              n_flops=n_flops, shape=list(aa.shape))
         del aa, bb, got, want
-    p2, p1 = passes["pass2"], passes["pass1"]
+    p2 = passes["pass2"]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape")
+    compare_with_earlier("correlate_peakfit", passes)
     return kernel_row(
         "correlate_peakfit", "corrfit.cu",
         "torchpiv_tpu/experimental/fused_pass.py:483",
         max_err, p2["ms"], p2["plain_ms"], p2["n_bytes"], p2["n_flops"],
         p2["library_ms"], library="correlate_fft + peakfit kernel (the unfused chain)",
         shape=p2["shape"],
-        pass1={k: p1[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                  "bound_by", "shape")})
+        **{label: {k: p[k] for k in keys} for label, p in passes.items()
+           if label != "pass2"})
 
 
 def phase_fused_kernel(frames_a: torch.Tensor, frames_b: torch.Tensor) -> dict:
@@ -665,13 +708,13 @@ def phase_fused_kernel(frames_a: torch.Tensor, frames_b: torch.Tensor) -> dict:
     dev = frames_a.device
     passes = {}
     max_err = 0.0
-    for label, (w, o), dc in (("pass2", (32, 16), False), ("pass1", (64, 32), True)):
+    for label, (w, o), dc in FUSED_SHAPES:
         n = window_count(w, o)
         if dc:  # the first pass: zero shifts
             maps = [torch.zeros(BATCH, n, device=dev)] * 4
         else:
             g = torch.Generator(device="cpu").manual_seed(3)
-            maps = [t.to(dev) for t in pass2_shifts(n, g)]
+            maps = [t.to(dev) for t in pass2_shifts(n, g, S=w // 2)]
         kw = dict(frame_shape=FRAME, wind_size=w, overlap=o)
         got = fused_piv_pass(frames_a, frames_b, *maps, dc_normalize=dc, **kw)
         want = fused_pass_reference(frames_a, frames_b, *maps, dc_normalize=dc, **kw)
@@ -708,7 +751,10 @@ def phase_fused_kernel(frames_a: torch.Tensor, frames_b: torch.Tensor) -> dict:
                              library_ms=chain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, n_bytes=n_bytes, n_flops=n_flops,
                              shape=[B, Hp, Wp, n, w])
-    p2, p1 = passes["pass2"], passes["pass1"]
+    p2 = passes["pass2"]
+    keys = ("ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "shape")
+    compare_with_earlier("fused_piv_pass", passes)
     return kernel_row(
         "fused_piv_pass", "fused_pass.cu",
         "torchpiv_tpu/experimental/fused_pass.py:293",
@@ -716,8 +762,8 @@ def phase_fused_kernel(frames_a: torch.Tensor, frames_b: torch.Tensor) -> dict:
         p2["library_ms"],
         library="2 shift_windows launches + correlate_fft + peakfit kernel",
         wrapper_ms=p2["wrapper_ms"], shape=p2["shape"],
-        pass1={k: p1[k] for k in ("ms", "wrapper_ms", "plain_ms", "library_ms",
-                                  "bound_ms", "bound_by", "shape")})
+        **{label: {k: p[k] for k in keys} for label, p in passes.items()
+           if label != "pass2"})
 
 
 def phase_packed_shift(frames: torch.Tensor) -> None:

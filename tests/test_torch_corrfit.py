@@ -2,8 +2,9 @@
 layout, the packed output of the window shift and the plain version of the
 correlate-and-fit kernel against the JAX functions they replace
 (``pack_windows``, ``shift_windows_pallas(packed=True)`` and
-``correlate_peakfit_pallas`` in interpret mode), the CPU path and argument
-checks of the kernel's wrapper, and the build's handling of shared headers.
+``correlate_peakfit_pallas`` in interpret mode), the step model of the
+kernel's transform against both, the CPU path and argument checks of the
+kernel's wrapper, and the build's handling of shared headers.
 The kernel itself is held against its plain version on a card in
 ``test_torch_cuda.py``.
 
@@ -12,7 +13,11 @@ shifts may differ by 1e-4 of a grey level (XLA's CPU backend may contract
 the blend's multiply-adds); fields: equal masks and RMS < 1e-4 px on valid
 windows, the limit the JAX package holds its own kernel to (the plain
 version correlates through ``torch.fft``, the TPU kernel through DFT-matrix
-products)."""
+products); the step model, a third float32 transform: masks differ on at
+most 0.1% of the windows, the same peak cell on at least 99.9% of the
+jointly valid ones, and there RMS < 1e-4 px and 1e-3 px at most."""
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,8 +30,9 @@ from torchpiv_tpu.ops.windows import extract_windows as jax_extract_windows
 from torchpiv_tpu_torch.kernels import _build
 from torchpiv_tpu_torch.kernels.corrfit import correlate_peakfit, twiddles
 from torchpiv_tpu_torch.kernels.shift import shift_windows
-from torchpiv_tpu_torch.ops.corrfit import (correlate_peakfit_reference,
-                                            corrfit_supported)
+from torchpiv_tpu_torch.ops.corrfit import (PLANS, correlate_fit_steps,
+                                            correlate_peakfit_reference,
+                                            corrfit_supported, twiddle_table)
 from torchpiv_tpu_torch.ops.packing import (pack_windows, packed_width,
                                             unpack_windows)
 from torchpiv_tpu_torch.ops.windows import extract_windows
@@ -161,6 +167,81 @@ def test_eps_is_added_after_the_minimum():
     assert u.item() == 0.0 and v.item() == 0.0 and not inval.item()
 
 
+def _assert_fit_agrees(got, want):
+    (gu, gv, gi), (wu, wv, wi) = [[np.asarray(t) for t in r] for r in (got, want)]
+    assert (gi != wi).mean() <= 1e-3
+    both = ~(gi | wi)
+    du, dv = (gu - wu)[both], (gv - wv)[both]
+    same = (np.abs(du) < 0.5) & (np.abs(dv) < 0.5)
+    assert 1.0 - same.mean() <= 1e-3
+    d = np.concatenate([du[same], dv[same]])
+    assert np.sqrt(np.mean(d ** 2)) < 1e-4 and np.abs(d).max() < 1e-3
+
+
+def _step_case(w):
+    """A frame pair with a displacement that scales with the window, cut
+    into half-overlapping windows: ``(aa, bb, n_rows, n_cols)``.  The seeds
+    leave no 4 or 8 px window whose three-point fit is ill-conditioned:
+    there any two float32 transforms, the plain version's and the TPU
+    kernel's too, differ by more than the tolerance."""
+    shape = (4 * w + w // 2, 5 * w)
+    fa, fb = particle_pair(shape, (0.11 * w / 4, -0.07 * w / 4),
+                           density=max(0.03, 0.6 / w), seed=48 + w)
+    o = w // 2
+    aa = extract_windows(torch.from_numpy(fa).float(), w, o)
+    bb = extract_windows(torch.from_numpy(fb).float(), w, o)
+    return (aa, bb) + _grid(shape, w, o)
+
+
+@pytest.mark.parametrize("dc", [False, True], ids=["raw", "dc"])
+@pytest.mark.parametrize("w", [4, 8, 16, 32, 64, 128])
+def test_step_model_matches_plain_version(w, dc):
+    aa, bb, n_rows, n_cols = _step_case(w)
+    got = correlate_fit_steps(aa, bb, True, 1.2, 3, dc)
+    want = correlate_peakfit_reference(aa, bb, True, 1.2, 3, dc)
+    assert got[0].shape == (n_rows * n_cols,) and got[2].dtype == torch.bool
+    _assert_fit_agrees(got, want)
+    nu, nv, ni = correlate_fit_steps(aa, bb, False, 1.2, 3, dc)
+    assert ni is None and torch.equal(nu, got[0]) and torch.equal(nv, got[1])
+
+
+@pytest.mark.parametrize("dc", [False, True], ids=["raw", "dc"])
+@pytest.mark.parametrize("w", [4, 8, 16, 32, 64])
+def test_step_model_matches_pallas_kernel(w, dc):
+    aa, bb, n_rows, n_cols = _step_case(w)
+    want = _jax_corrfit(aa.numpy(), bb.numpy(), n_rows, n_cols, w, dc_normalize=dc)
+    _assert_fit_agrees(correlate_fit_steps(aa, bb, True, 1.2, 3, dc), want)
+
+
+def test_step_model_plans_are_the_kernel_headers():
+    """``PLANS`` repeats ``Plan<W>`` of ``csrc/corrfit.cuh``: one entry per
+    supported window, ``W = P * L``, radices the header's."""
+    header = (_build.CSRC / "corrfit.cuh").read_text()
+    found = {int(w): (int(p), int(l)) for w, p, l in re.findall(
+        r"struct Plan<(\d+)> \{ static constexpr int P = (\d+), L = (\d+),", header)}
+    assert found == PLANS
+    assert sorted(PLANS) == [w for w in range(1, 300) if corrfit_supported(w)]
+    assert all(p * l == w and p % 2 == 0 for w, (p, l) in PLANS.items())
+
+
+@pytest.mark.parametrize("w", [4, 16, 64, 128])
+def test_step_model_finds_a_lone_pixel_pair(w):
+    """A lone pixel in each window correlates to a lone peak at the offset
+    between the two, so every index map of the transform is right.  The
+    floor around the peak is rounding noise, which the three-point fit
+    turns into up to half a pixel: the peak cell is what is held."""
+    a = torch.zeros(3, w, w)
+    b = torch.zeros(3, w, w)
+    offsets = [(1, -1), (0, 1), (-1, 1)]  # rows, columns
+    for i, (r, c) in enumerate([(1, 2), (w // 2, w // 2), (w - 2, 0)]):
+        a[i, r, c] = 3.0
+        b[i, r + offsets[i][0], c + offsets[i][1]] = 2.0
+    for fit in (correlate_fit_steps, correlate_peakfit_reference):
+        u, v, _ = fit(a, b)
+        for i, (dr, dc) in enumerate(offsets):
+            assert abs(u[i].item() - dc) <= 0.5 and abs(v[i].item() - dr) <= 0.5
+
+
 def test_wrapper_takes_plain_version_on_cpu():
     fa, fb = particle_pair((96, 96), (1.0, 0.5), seed=4)
     aa = extract_windows(torch.from_numpy(fa).float(), 32, 16)
@@ -199,6 +280,9 @@ def test_twiddle_table_is_the_rounded_float64_table(w):
     got = twiddles(w, torch.device("cpu"))
     assert got.dtype == torch.float32 and got.shape == (w // 2, 2)
     np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+    # the kernels read it in host memory and pass it on as a parameter
+    assert got.device.type == "cpu" and got.is_contiguous()
+    assert torch.equal(got, twiddle_table(w))
 
 
 def test_an_edited_header_changes_every_target(tmp_path, monkeypatch):

@@ -25,7 +25,7 @@ import torch
 
 from torchpiv_tpu_torch import MultipassPIV, OfflinePIV, PIVConfig
 from torchpiv_tpu_torch.io.decode import imwrite_gray
-from torchpiv_tpu_torch.kernels.corrfit import correlate_peakfit
+from torchpiv_tpu_torch.kernels.corrfit import correlate_peakfit, describe
 from torchpiv_tpu_torch.kernels.deform import def_windows
 from torchpiv_tpu_torch.kernels.fused_pass import fused_piv_pass
 from torchpiv_tpu_torch.kernels.peakfit import peakfit
@@ -84,7 +84,8 @@ def test_kernel_matches_plain_version(card, shape, w, o, kind):
 @pytest.mark.parametrize("kind", ["integer", "fractional", "mixed"])
 @pytest.mark.parametrize("shape,w,o,options", [
     ((256, 320), 32, 16, {}), ((200, 261), 64, 32, {}), ((300, 300), 128, 64, {}),
-    ((131, 157), 16, 8, {}), ((256, 320), 32, 16, dict(max_shift=5)),
+    ((131, 157), 16, 8, {}), ((67, 90), 8, 4, {}), ((40, 52), 4, 2, {}),
+    ((256, 320), 32, 16, dict(max_shift=5)),
     ((256, 317), 32, 24, dict(flat_wrap=False)), ((200, 200), 25, 10, {})])
 @pytest.mark.parametrize("variant", sorted(VARIANT_WRAPPERS))
 def test_variant_kernel_matches_plain_version_and_rolls(card, variant, shape, w, o,
@@ -279,6 +280,29 @@ def test_corrfit_kernel_matches_plain_version(card, w, validate, dc_normalize):
     _assert_fit_agrees(got, want)
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 5])
+@pytest.mark.parametrize("w", [4, 16, 32, 64])
+def test_corrfit_kernel_ragged_last_block(card, w, n):
+    """Windows up to 32 share a block by fours: a count that leaves the last
+    block part empty gives the same fields, window for window."""
+    aa, bb = _window_pairs(card, w, shape=(4 * w, 5 * w))
+    full = correlate_peakfit(aa, bb)
+    part = correlate_peakfit(aa[:n].contiguous(), bb[:n].contiguous())
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, f[:n]) for p, f in zip(part, full))
+
+
+@pytest.mark.parametrize("w", [4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("name", ["corrfit", "fused_pass"])
+def test_no_instance_spills_or_outgrows_the_shared_memory(card, name, w):
+    info = describe(name, w)
+    assert info["local_bytes"] == 0  # no spill, no stack frame
+    assert 0 < info["registers"] <= 255
+    assert info["shared_bytes"] <= 232448  # 227 KB a block on this card
+    assert info["threads"] == 32 * info["windows"] or info["windows"] == 1
+    assert info["windows"] == (4 if w <= 32 else 1)
+
+
 @pytest.mark.parametrize("bad", [
     lambda a, b: (a[:, :, :-1], b[:, :, :-1]), lambda a, b: (a, b[:-1]),
     lambda a, b: (a.double(), b.double()), lambda a, b: (a, b.cpu()),
@@ -323,20 +347,45 @@ def test_fused_pass_kernel_matches_plain_version(card, shape, w, o, kind):
     _assert_fit_agrees(got, want)
 
 
-@pytest.mark.parametrize("kind", ["fractional", "integer"])
-def test_fused_pass_correlates_the_windows_of_shift_windows(card, kind):
+@pytest.mark.parametrize("validate", [False, True])
+@pytest.mark.parametrize("dc_normalize", [False, True])
+@pytest.mark.parametrize("w", [4, 8, 16, 32, 64, 128])
+def test_fused_pass_kernel_every_window(card, w, validate, dc_normalize):
+    """Every instance, with shifts that reach the clamp and the pad, a batch
+    of three and a window count that leaves a block part empty."""
+    shape = (3 * w + w // 2 + 3, 4 * w + 5)
+    fa, fb, maps = _pass_case(card, shape, w, w // 2, "fractional", batch=3)
+    if dc_normalize:  # no blank window: sum(a) * sum(b) > 0
+        fa, fb = fa.float() + 1, fb.float() + 1
+    kw = dict(frame_shape=shape, wind_size=w, overlap=w // 2, validate=validate,
+              dc_normalize=dc_normalize, val_ratio=1.3, validation_window=2)
+    got = fused_piv_pass(fa, fb, *maps, **kw)
+    want = fused_pass_reference(fa.float(), fb.float(), *maps, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == maps[0].shape and (got[2] is None) == (not validate)
+    _assert_fit_agrees(got, want)
+
+
+@pytest.mark.parametrize("kind", ["fractional", "integer", "zero"])
+@pytest.mark.parametrize("shape,w,o", [((256, 320), 32, 16), ((40, 52), 4, 2),
+                                       ((67, 90), 8, 4), ((96, 120), 16, 8),
+                                       ((200, 264), 64, 32), ((300, 300), 128, 64)])
+def test_fused_pass_correlates_the_windows_of_shift_windows(card, shape, w, o, kind):
     """The whole-pass kernel shares its device code with the shift and the
     correlate-and-fit kernels: its fields equal theirs bit for bit."""
-    shape, w, o = (256, 320), 32, 16
     fa, fb, maps = _pass_case(card, shape, w, o, kind)
     kw = dict(frame_shape=shape, wind_size=w, overlap=o)
-    fu, fv, fi = fused_piv_pass(fa, fb, *maps, **kw)
+    if kind == "zero":
+        fa, fb = fa.float() + 1, fb.float() + 1
+    dc = dict(dc_normalize=kind == "zero")
+    fu, fv, fi = fused_piv_pass(fa, fb, *maps, **dc, **kw)
     aa = shift_windows(fa, maps[0], maps[1], **kw)
     bb = shift_windows(fb, maps[2], maps[3], **kw)
-    su, sv, si = correlate_peakfit(aa.reshape(-1, w, w), bb.reshape(-1, w, w))
+    su, sv, si = correlate_peakfit(aa.reshape(-1, w, w), bb.reshape(-1, w, w), **dc)
     assert torch.equal(fu.reshape(-1), su) and torch.equal(fv.reshape(-1), sv)
     assert torch.equal(fi.reshape(-1), si)
-    one = fused_piv_pass(fa[0], fb[0], *(m[0] for m in maps), validate=False, **kw)
+    one = fused_piv_pass(fa[0], fb[0], *(m[0] for m in maps), validate=False,
+                         **dc, **kw)
     assert one[2] is None and torch.equal(one[0], fu[0])
 
 

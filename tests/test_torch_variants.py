@@ -19,6 +19,9 @@ from torchpiv_tpu_torch.kernels import KERNELS
 from torchpiv_tpu_torch.kernels import shift as shift_module
 from torchpiv_tpu_torch.kernels.shift import shift_windows, variant_frame
 from torchpiv_tpu_torch.ops.shifts import (BF16_VARIANTS, VARIANTS,
+                                           ShiftOperands,
+                                           blend_reference_variant,
+                                           gather_tiles, mxu_tile_steps,
                                            shift_operands,
                                            shift_windows_reference)
 
@@ -174,3 +177,56 @@ def test_variant_frame_layout(variant):
         assert got.shape[-1] % 4 == 0 and got.shape[-1] >= Wp + 4
         assert torch.equal(got[..., :Wp], ops.frame)
     assert got.is_contiguous() and not got[..., Wp:].any()
+
+
+# tile origins with every remainder modulo 8, and at the frame's far edges
+MXU_ORIGINS = [(r, (3 * r + 1) % 8) for r in range(8)] + [
+    (8 + c, c) for c in range(8)] + [(0, 0), (-1, -1), (-1, 5), (2, -1)]
+
+
+@pytest.mark.parametrize("origin", MXU_ORIGINS, ids=lambda o: f"{o[0]}_{o[1]}")
+def test_mxu_chained_banded_products_equal_the_gather(origin):
+    """``(Wy @ block) @ Wx`` in bfloat16, by 16-row strips and with the two
+    banded slices of each product as the kernel sums them, is the gather of
+    the tile, exactly; ``-1`` puts the tile against the frame's last row or
+    column, where the aligned block reaches beyond the frame."""
+    Hp, Wp, w = 75, 83, 32
+    T = w + 1
+    frame = torch.from_numpy(np.random.default_rng(5).uniform(0, 255, (1, Hp, Wp))
+                             .astype(np.float32))
+    z = torch.zeros(1, 1)
+    ops = ShiftOperands(frame, z.int(), z.int(), z, z, 0, 1, 1, 1)
+    bf16 = variant_frame(ops, "mxu")[0]
+    ty = origin[0] if origin[0] >= 0 else Hp - T
+    tx = origin[1] if origin[1] >= 0 else Wp - T
+    got = mxu_tile_steps(bf16, ty, tx, T)
+    want = gather_tiles(bf16.float()[None, :, :Wp].contiguous(),
+                        torch.tensor([[ty]]), torch.tensor([[tx]]), T)[0, 0]
+    assert got.shape == (T, T) and torch.equal(got, want)
+    assert torch.equal(got, got.to(torch.bfloat16).float())  # one term a sum
+
+
+@pytest.mark.parametrize("w", [4, 8, 16, 64])
+def test_mxu_step_model_window_sizes(w):
+    """Other tile sizes: one strip (w 4, 8), a strip of padding only (w 16)
+    and five strips (w 64), through the blend of the plain version."""
+    shape = (3 * w + 5, 4 * w + 3)
+    frame, vx, vy = _case(shape, w, w // 2, "fractional", seed=w, values="float")
+    args = [torch.from_numpy(a)[None] for a in (frame, vx, vy)]
+    ops = shift_operands(*args, frame_shape=shape, wind_size=w, overlap=w // 2)
+    want = blend_reference_variant(ops, w, "mxu")
+    bf16 = variant_frame(ops, "mxu")[0]
+    Hp, Wp = ops.frame.shape[-2:]
+    T = w + 1
+    n = torch.arange(ops.n_rows * ops.n_cols)
+    ty = ((n // ops.n_cols) * ops.step + ops.off + ops.dy[0]).clamp(0, Hp - T)
+    tx = ((n % ops.n_cols) * ops.step + ops.off + ops.dx[0]).clamp(0, Wp - T)
+    tiles = torch.stack([mxu_tile_steps(bf16, int(y), int(x), T)
+                         for y, x in zip(ty, tx)])
+    # the plain version's blend on the model's tiles
+    tiled = torch.zeros(1, len(n) * T, T)
+    tiled[0] = tiles.reshape(-1, T)
+    grid = ops._replace(frame=tiled, dy=torch.zeros_like(ops.dy),
+                        dx=torch.zeros_like(ops.dx), off=0, n_rows=len(n),
+                        n_cols=1, step=T)
+    assert torch.equal(blend_reference_variant(grid, w, "rolls"), want)

@@ -15,24 +15,34 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..ops.corrfit import (MAX_WIND, MIN_WIND, correlate_peakfit_reference,
-                           corrfit_supported)
+                           corrfit_supported, twiddle_table)
 from . import _build
 
 
 @functools.lru_cache(maxsize=32)
 def twiddles(wind_size: int, device: torch.device) -> torch.Tensor:
     """``[w/2, 2]`` float32 table ``(cos, -sin)(2*pi*j/w)``, computed in
-    float64 on the host and rounded once."""
-    ang = [2.0 * math.pi * j / wind_size for j in range(wind_size // 2)]
-    table = torch.tensor([[math.cos(a), -math.sin(a)] for a in ang],
-                         dtype=torch.float64)
-    return table.to(torch.float32).to(device).contiguous()
+    float64 on the host and rounded once.  The kernels take the table in
+    host memory and pass it on as a kernel parameter."""
+    return twiddle_table(wind_size).to(device).contiguous()
+
+
+def describe(name: str, wind_size: int) -> Dict[str, int]:
+    """What the compiler made of the instance of ``csrc/<name>.cu``
+    (``"corrfit"`` or ``"fused_pass"``) for ``wind_size``: registers a
+    thread, bytes of local memory a thread (spills and stack), bytes of
+    shared memory a block, threads and windows a block."""
+    check_windows(name, wind_size)
+    fn = _build.function(name, f"{name}_describe", [ctypes.c_int, ctypes.c_void_p])
+    out = (ctypes.c_int * 5)()
+    _build.check_launch(name, fn(wind_size, out))
+    keys = ("registers", "local_bytes", "shared_bytes", "threads", "windows")
+    return dict(zip(keys, out))
 
 
 def check_windows(name: str, wind_size: int) -> None:
@@ -49,7 +59,7 @@ def launch(windows_a: torch.Tensor, windows_b: torch.Tensor, validate: bool,
     u = torch.empty(n, dtype=torch.float32, device=dev)
     v = torch.empty(n, dtype=torch.float32, device=dev)
     invalid = torch.empty(n, dtype=torch.bool, device=dev) if validate else None
-    tw = twiddles(w, dev)
+    tw = twiddles(w, torch.device("cpu"))
     fn = _build.function(
         "corrfit", "corrfit_f32",
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3

@@ -19,7 +19,10 @@
 // sums explicitly rounded (__fmul_rn / __fadd_rn / __fsub_rn) in the TPU
 // kernels' order; EPS is added after the subtraction of the minimum.
 //
-// The block size must be a multiple of 32, at most 1024.
+// The threads that fit one map form a group: a whole block (BlockGroup,
+// block-wide barriers; the block size a multiple of 32, at most 1024) or
+// one warp (WarpGroup, shuffles and warp barriers only, so the warps of a
+// block fit their own maps independently).
 
 #pragma once
 
@@ -95,21 +98,62 @@ __device__ __forceinline__ float gauss3(float lm, float ll, float lr) {
   return __fdiv_rn(num, den);
 }
 
+// All threads of a block.
+struct BlockGroup {
+  FitScratch& s;
+  __device__ __forceinline__ explicit BlockGroup(FitScratch& scratch) : s(scratch) {}
+  __device__ __forceinline__ int rank() const { return threadIdx.x; }
+  __device__ __forceinline__ int size() const { return blockDim.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+  __device__ __forceinline__ float min(float v) const { return block_min(v, s); }
+  __device__ __forceinline__ void argmax(float& v, int& idx) const {
+    block_argmax(v, idx, s);
+  }
+};
+
+// The 32 threads of one warp; every lane must be active.
+struct WarpGroup {
+  __device__ __forceinline__ explicit WarpGroup(FitScratch&) {}
+  __device__ __forceinline__ int rank() const { return threadIdx.x & 31; }
+  __device__ __forceinline__ int size() const { return 32; }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+  __device__ __forceinline__ float min(float v) const {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+  }
+  // like block_argmax, it publishes the group's earlier shared-memory writes
+  __device__ __forceinline__ void argmax(float& v, int& idx) const {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, idx, o);
+      if (ov > v || (ov == v && oi < idx)) {
+        v = ov;
+        idx = oi;
+      }
+    }
+    __syncwarp();
+  }
+};
+
 // Fit the raw map x[d*k] in shared memory and write this map's u, v and,
 // unless `invalid` is null, its validation flag.  Called by every thread of
-// the block.  On entry thread t has written the samples p = t, t + blockDim.x,
+// the group g.  On entry thread t has written the samples p = t, t + size,
 // ... of x itself and `mn` is the minimum over those; x is overwritten.
-__device__ __forceinline__ void fit_map(float* x, float mn, int d, int k, int vw,
-                                        float val_ratio, int min_subtract,
-                                        FitScratch& s, float* u, float* v,
+template <class Group>
+__device__ __forceinline__ void fit_map(const Group& g, float* x, float mn, int d,
+                                        int k, int vw, float val_ratio,
+                                        int min_subtract, float* u, float* v,
                                         unsigned char* invalid) {
   const int kd = d * k;
-  if (min_subtract) mn = block_min(mn, s);
+  if (min_subtract) mn = g.min(mn);
 
   // x = (corr - min) + EPS, its maximum and first maximal index
   float best = -INFINITY;
   int m = kd;
-  for (int p = threadIdx.x; p < kd; p += blockDim.x) {
+  for (int p = g.rank(); p < kd; p += g.size()) {
     float c = x[p];
     if (min_subtract) c = __fsub_rn(c, mn);
     c = __fadd_rn(c, kEps);
@@ -119,7 +163,7 @@ __device__ __forceinline__ void fit_map(float* x, float mn, int d, int k, int vw
       m = p;
     }
   }
-  block_argmax(best, m, s);  // its barriers publish x[] as well
+  g.argmax(best, m);  // its barriers publish x[] as well
   if (m >= kd) m = 0;  // an all-NaN map: argmax of the plain version is moot
   const float cm = best;
 
@@ -128,7 +172,7 @@ __device__ __forceinline__ void fit_map(float* x, float mn, int d, int k, int vw
   const int top = (m + k >= kd - 1) ? m : m + k;
   const int bot = (m - k <= 0) ? m : m - k;
 
-  if (threadIdx.x == 0) {
+  if (g.rank() == 0) {
     const float lcm = logf(cm);
     const float lcl = logf(x[left]);
     const float lcr = logf(x[right]);
@@ -147,19 +191,32 @@ __device__ __forceinline__ void fit_map(float* x, float mn, int d, int k, int vw
   const bool lo = (m - (vw + k * vw)) < 0;
   const bool hi = (m + (vw + k * vw)) > kd - 1;
   float c2 = 0.0f;  // an excluded sample counts as 0
-  for (int p = threadIdx.x; p < kd; p += blockDim.x) {
+  // dd / k: by a power of two, the product with 1 / k is the same number
+  const bool pow2 = (k & (k - 1)) == 0;
+  const float inv_k = __fdiv_rn(1.0f, (float)k);
+  for (int p = g.rank(); p < kd; p += g.size()) {
     const int dd = p - m;
-    const int j = (int)rintf(__fdiv_rn((float)dd, (float)k));  // half to even
+    const float q = pow2 ? __fmul_rn((float)dd, inv_k)
+                         : __fdiv_rn((float)dd, (float)k);
+    const int j = (int)rintf(q);  // half to even
     bool excl = abs(j) <= vw && abs(dd - k * j) <= vw;
     excl = excl || (p == 0 && lo) || (p == kd - 1 && hi);
     if (!excl) c2 = fmaxf(c2, x[p]);
   }
-  c2 = -block_min(-c2, s);
-  if (threadIdx.x == 0) {
+  c2 = -g.min(-c2);
+  if (g.rank() == 0) {
     const bool degenerate =
         left >= kd - 1 && right <= 0 && top >= kd - 1 && bot <= 0;
     *invalid = (__fdiv_rn(cm, c2) < val_ratio || degenerate) ? 1 : 0;
   }
+}
+
+// The same by a whole block, with its reduction scratch.
+__device__ __forceinline__ void fit_map(float* x, float mn, int d, int k, int vw,
+                                        float val_ratio, int min_subtract,
+                                        FitScratch& s, float* u, float* v,
+                                        unsigned char* invalid) {
+  fit_map(BlockGroup(s), x, mn, d, k, vw, val_ratio, min_subtract, u, v, invalid);
 }
 
 }  // namespace piv

@@ -43,8 +43,11 @@
 namespace {
 
 constexpr int kThreads = 128;
+// 16 blocks fill an SM's 2048 threads; the bound keeps the kernel within
+// the 32 registers a thread that this takes
+constexpr int kBlocksPerSM = 16;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 peakfit_kernel(const float* __restrict__ corr, float* __restrict__ u,
                float* __restrict__ v, unsigned char* __restrict__ invalid,
                int d, int k, int vw, float val_ratio, int min_subtract) {

@@ -91,9 +91,33 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                : "memory");
 }
 
+// The same for 4 bytes, both addresses 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// `stage_tile` by asynchronous copies, by every thread of a group of `size`
+// threads, each with its `rank`: all of a thread's copies are in flight at
+// once and pass through no register.  The caller waits (`cp_async_wait`)
+// and synchronises the group.
+__device__ __forceinline__ void stage_tile_async(const float* __restrict__ frame,
+                                                 int Hp, int Wp, int ty, int tx,
+                                                 int T, float* tile, int rank,
+                                                 int size) {
+  ty = min(max(ty, 0), Hp - T);
+  tx = min(max(tx, 0), Wp - T);
+  const float* src = frame + (int64_t)ty * Wp + tx;
+  for (int i = rank; i < T * T; i += size) {
+    const int ri = i / T;
+    cp_async4(tile + i, src + (int64_t)ri * Wp + (i - ri * T));
+  }
 }
 
 }  // namespace piv

@@ -35,7 +35,7 @@ def launch(ops_a: ShiftOperands, ops_b: ShiftOperands, wind_size: int,
     u = torch.empty(shape, dtype=torch.float32, device=dev)
     v = torch.empty(shape, dtype=torch.float32, device=dev)
     invalid = torch.empty(shape, dtype=torch.bool, device=dev) if validate else None
-    tw = twiddles(wind_size, dev)
+    tw = twiddles(wind_size, torch.device("cpu"))
     fn = _build.function(
         "fused_pass", "fused_pass_f32",
         [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9

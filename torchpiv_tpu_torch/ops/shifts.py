@@ -205,6 +205,56 @@ def blend_reference_variant(ops: ShiftOperands, wind_size: int,
     return blend_reference(ops, wind_size)
 
 
+def mxu_tile_steps(frame: torch.Tensor, ty: int, tx: int, T: int) -> torch.Tensor:
+    """The ``T x T`` tile at the clamped origin ``(ty, tx)`` of one bfloat16
+    ``[Hp, pitch]`` frame (``pitch`` a multiple of 8) by the steps of the
+    ``"mxu"`` kernel (``csrc/shift_windows_mxu.cu``), with tensor ops: the
+    ``KP x KP`` block at the origin rounded down to 8, zero beyond the
+    frame's rows and pitch; per 16-row strip, ``Wy @ block`` as the sum over
+    the two 16-deep slices of block rows that the banded one-hot ``Wy`` can
+    select, 16 columns at a time, cast to bfloat16; then times ``Wx``: the
+    left 8 of 16 output columns from the chunk's own slice, the right 8
+    from it and the first 8 columns of the next.  Products in bfloat16 with
+    float32 sums.  A model of the kernel's index arithmetic for the CPU
+    tests: no path of the package calls it."""
+    Hp, pitch = frame.shape
+    Tp = -(-T // 16) * 16
+    KP = -(-(T + 7) // 16) * 16
+    s_row, s_col = ty % 8, tx % 8
+    ty0, tx0 = ty - s_row, tx - s_col
+    block = torch.zeros(KP, KP, dtype=torch.bfloat16)
+    rows = min(KP, Hp - ty0)
+    cols = min(KP, (pitch - tx0) // 8 * 8)  # whole 16-byte pieces
+    block[:rows, :cols] = frame[ty0:ty0 + rows, tx0:tx0 + cols]
+    block = block.to(torch.float32)
+    k = torch.arange(16)
+
+    def one_hot(match):  # [16, 16] selector, exact in bfloat16
+        return match.to(torch.float32)
+
+    def strip_slice(i0, col0):  # 16 columns of Wy @ block for the strip
+        acc = torch.zeros(16, 16)
+        if col0 < KP:
+            for s in range(2):
+                if i0 + 16 * s < KP:
+                    wy = one_hot(k[None, :] == (s_row - 16 * s + k)[:, None])
+                    acc = acc + wy @ block[i0 + 16 * s:i0 + 16 * s + 16, col0:col0 + 16]
+        return acc.to(torch.bfloat16).to(torch.float32)
+
+    n = torch.arange(8)
+    wx_a = one_hot(k[:, None] == (n + s_col)[None, :])
+    wx_b = one_hot(k[:, None] == (n + s_col + 8)[None, :])
+    wx_c = one_hot(k[:8, None] == (n + s_col - 8)[None, :])
+    tile = torch.zeros(Tp, Tp)
+    for i0 in range(0, Tp, 16):
+        cur = strip_slice(i0, 0)
+        for col in range(0, Tp, 16):
+            nxt = strip_slice(i0, col + 16)
+            tile[i0:i0 + 16, col:col + 8] = cur @ wx_a
+            tile[i0:i0 + 16, col + 8:col + 16] = cur @ wx_b + nxt[:, :8] @ wx_c
+            cur = nxt
+    return tile[:T, :T]
+
 def cubic_weights(t: torch.Tensor):
     """Keys cubic-convolution weights (a = -0.5) of the four taps at
     ``floor - 1 .. floor + 2`` for the fraction ``t``, in the TPU kernel's
