@@ -49,6 +49,18 @@ Phases, each failing loudly:
 8. the CUDA engine against the CPU engine (plain versions) on one full-size
    pair: CWS, DEF, ``split``, ``on`` and the robust configuration.
 
+Phase 3 also runs ``tools/shift_anatomy_cuda.py``'s five modes of the
+window-shift kernel at pass 2 (``full`` and ``cpasync`` bit-equal to the
+plain version).  Phases 4 and 6 print the pipeline's host spans per batch
+(``OfflinePIV.span_log``) on the CWS, ``split`` and ``on`` paths, and the
+busy share they give.  After phase 6: the serial loop the pipeline replaced
+(``serial_yardstick``) against the three-stage pipeline, in turns (serial,
+pipelined, pipelined, serial) over 64 pairs that are hard links to the 8
+uniform ones (decode runs for every pair, from the page cache), for CWS
+and ``fused="on"``, with bit-equal fields; one batch of ``background=
+"auto"`` over the rough pairs, bit-equal to frames cleaned on the host; one
+batch of ``preprocess="clahe"``.
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits with 1 and prints no result.
@@ -72,6 +84,7 @@ DISPLACEMENT = (3.3, -2.1)  # px, +x right, +y down (the CWS path)
 SHEAR = (1.0, 0.004)  # u = 1 + 0.004 y px, v = 0 (the DEF path)
 FRAME = (2048, 2048)
 N_PAIRS = 8  # uniform pairs, the CWS path
+N_LINKED = 64  # pairs of the serial-against-pipelined turns: links to the 8
 N_SHEAR_PAIRS = 8  # sheared pairs, the DEF path
 BATCH = 4
 N_PATCHES = 6  # corrupted patches a frame, the robust path
@@ -89,6 +102,10 @@ FUSED_SHAPES = (("pass2", (32, 16), False), ("pass1", (64, 32), True),
                 ("w16", (16, 8), False), ("w128", (128, 64), True))
 VARIANT_LINES = {"bf16": 29, "lanephases": 111, "mxu": 195, "phases": 294}
 CSRC = "torchpiv_tpu_torch/kernels/csrc/"
+ANATOMY = "tools/shift_anatomy_cuda.py"
+ANATOMY_ROW = "shift_anatomy_full"
+SPANS = ("decode_s", "pin_s", "h2d_ms", "load_s", "issue_s", "device_ms", "d2h_ms",
+         "wait_s", "tail_s")
 
 
 def log(msg: str) -> None:
@@ -793,6 +810,44 @@ def phase_packed_shift(frames: torch.Tensor) -> None:
         f"{ms:.4f} ms per launch packed, {std_ms:.4f} ms standard")
 
 
+def phase_shift_anatomy(frames: torch.Tensor) -> dict:
+    """``tools/shift_anatomy_cuda.py``'s five modes of ``shift_windows`` at
+    pass 2; returns the kernels line's row of its ``full`` mode (the
+    counterpart of ``make_kernel``), with the launches of the tool's run."""
+    import importlib.util
+
+    from torchpiv_tpu_torch.ops.shifts import blend_reference
+
+    spec = importlib.util.spec_from_file_location(
+        "shift_anatomy_cuda", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                           ANATOMY))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    ops = tool.operands(frames)
+    modes = {r["mode"]: r for r in tool.measure(ops)}
+    for mode in tool.EXACT:
+        check(modes[mode]["bit_equal"], f"anatomy {mode} is not bit-equal")
+    full = modes["full"]
+    plain_ms = cuda_ms(lambda: blend_reference(ops, tool.W), reps=5)
+    grid = shift_grid(ops, tool.W)
+    img = ops.frame[:, None]
+    library_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(
+        img, grid, mode="bilinear", padding_mode="border", align_corners=True))
+    del grid, img
+    B, Hp, Wp = ops.frame.shape
+    n = ops.n_rows * ops.n_cols
+    w = tool.W
+    row = kernel_row(
+        ANATOMY_ROW, "", "tools/bench_shift_anatomy.py:47",
+        max(modes[m]["max_abs_err"] for m in tool.EXACT), full["ms"], plain_ms,
+        B * (Hp * Wp * 4 + n * 4 * 4 + n * w * w * 4), B * n * w * w * 7, library_ms,
+        shape=[B, Hp, Wp, n, w],
+        modes={m: {k: r[k] for k in r if k != "mode"} for m, r in modes.items()})
+    row["source"] = ANATOMY
+    row["launches"] = full["launches"]
+    return row
+
+
 def phase_kernels(folder: str) -> list:
     """Every kernel against its plain version; returns the kernels' rows."""
     from torchpiv_tpu_torch.io.dataset import PIVDataset
@@ -807,6 +862,7 @@ def phase_kernels(folder: str) -> list:
     rows.append(phase_corrfit_kernel(frames_a, frames_b))
     rows.append(phase_fused_kernel(frames_a, frames_b))
     phase_packed_shift(frames_a)
+    rows.append(phase_shift_anatomy(frames_a))
     torch.cuda.empty_cache()
     log("kernels of the port: " + ", ".join(r["name"] for r in rows))
     return rows
@@ -836,6 +892,32 @@ def drive(piv, kernels):
     return fields, launches, len(fields) / elapsed
 
 
+def span_report(label: str, spans: list, t0: float, wall_s: float) -> dict:
+    """Log a run's host spans (``OfflinePIV.span_log``): per-batch medians
+    and sums of each span, the busy share they give (device ms over the
+    wall time) and the first field's latency; returns the summary."""
+    summary = {
+        "spans": label, "batches": len(spans), "pairs": sum(s["pairs"] for s in spans),
+        "wall_s": wall_s,
+        "median": {k: float(np.median([s[k] for s in spans])) for k in SPANS},
+        "sum": {k: float(sum(s[k] for s in spans)) for k in SPANS},
+        "busy_share_spans": sum(s["device_ms"] for s in spans) / 1e3 / wall_s,
+        "first_field_s": spans[0]["first_field_t"] - t0}
+    log(json.dumps(summary))
+    return summary
+
+
+def drive_with_spans(piv, kernels, label: str):
+    """``drive`` with ``piv.span_log`` on; returns ``(fields, launches,
+    pairs_per_s, span summary)``."""
+    piv.span_log = []
+    t0 = time.perf_counter()
+    fields, launches, pairs_per_s = drive(piv, kernels)
+    summary = span_report(label, piv.span_log, t0, len(fields) / pairs_per_s)
+    piv.span_log = None
+    return fields, launches, pairs_per_s, summary
+
+
 def warm_up(piv, folder: str) -> float:
     """One engine call on the first batch (cuFFT plans, the caching
     allocator); returns its valid share."""
@@ -859,7 +941,7 @@ UNIT = 1000.0  # px -> output units: scale / dt * 1000, defaults 1 and 1
 
 def phase_main_path(folder: str, kernels):
     """OfflinePIV at 4 MP, w64/o32, 2-pass CWS; returns the launch counts,
-    pairs/s and the fields."""
+    pairs/s, the fields and the span summary."""
     from torchpiv_tpu_torch import OfflinePIV
 
     piv = OfflinePIV(folder, wind_size=64, overlap=32, multipass=2,
@@ -868,7 +950,7 @@ def phase_main_path(folder: str, kernels):
     log(f"CWS path: valid share {valid:.4f} over the first {BATCH} pairs")
     check(valid > 0.95, f"valid share {valid}")
 
-    fields, launches, pairs_per_s = drive(piv, kernels)
+    fields, launches, pairs_per_s, spans = drive_with_spans(piv, kernels, "CWS path")
     log(f"CWS path: {len(fields)} pairs at {pairs_per_s:.3f} pairs/s, "
         f"launches {launches}")
     check_fields(fields, piv, N_PAIRS)
@@ -876,7 +958,7 @@ def phase_main_path(folder: str, kernels):
     check(launches == only(launches, shift_windows=2 * n_batches),
           f"launches {launches}")
     check_displacement(fields, "CWS path")
-    return launches, pairs_per_s, fields
+    return launches, pairs_per_s, fields, spans
 
 
 def only(launches: dict, **counts) -> dict:
@@ -898,7 +980,8 @@ def phase_fused_paths(uniform: str, shear: str, kernels) -> dict:
     """OfflinePIV at 4 MP, w64/o32, 2-pass CWS over the uniform pairs with
     ``fused="split"`` and with ``fused="on"``, then one batch of
     ``fused="split"`` + DEF over the sheared pairs; returns
-    ``{mode: (launches, pairs_per_s, fields)}`` of the two CWS runs."""
+    ``{mode: (launches, pairs_per_s, fields, span summary)}`` of the two CWS
+    runs."""
     from torchpiv_tpu_torch import OfflinePIV
 
     kw = dict(wind_size=64, overlap=32, multipass=2, batch_size=BATCH)
@@ -918,13 +1001,13 @@ def phase_fused_paths(uniform: str, shear: str, kernels) -> dict:
         valid = warm_up(piv, uniform)
         log(f"{label}: valid share {valid:.4f} over the first {BATCH} pairs")
         check(valid > 0.95, f"{label}: valid share {valid}")
-        fields, launches, pairs_per_s = drive(piv, kernels)
+        fields, launches, pairs_per_s, spans = drive_with_spans(piv, kernels, label)
         log(f"{label}: {len(fields)} pairs at {pairs_per_s:.3f} pairs/s, "
             f"launches {launches}")
         check_fields(fields, piv, N_PAIRS)
         check(launches == only(launches, **want), f"{label}: launches {launches}")
         check_displacement(fields, label)
-        out[fused] = (launches, pairs_per_s, fields)
+        out[fused] = (launches, pairs_per_s, fields, spans)
 
     piv = OfflinePIV(shear, multipass_mode="DEF", max_pairs=BATCH,
                      engine_options={"fused": "split"}, **kw)
@@ -947,7 +1030,153 @@ def same_fields(got, want, label: str) -> None:
     check(len(got) <= len(want), f"{label}: {len(got)} fields against {len(want)}")
     for a, b in zip(got, want):
         check(all(np.array_equal(x, y) for x, y in zip(a, b)),
-              f"{label}: the fields differ from the rolls run's")
+              f"{label}: the fields differ from the run they are held against")
+
+
+def link_pairs(src: str, dst: str, n: int) -> None:
+    """``n`` pairs in ``dst`` that are hard links to the ``N_PAIRS`` pairs
+    of ``src`` in turn: every pair is decoded, from the page cache."""
+    os.makedirs(dst)
+    for j in range(n):
+        for tag in "ab":
+            os.link(os.path.join(src, f"p{j % N_PAIRS}_{tag}.bmp"),
+                    os.path.join(dst, f"p{j}_{tag}.bmp"))
+
+
+def serial_yardstick(piv, issue_log=None) -> list:
+    """The loop the port's ``OfflinePIV`` ran before its three stages, on
+    ``piv``'s dataset and engine: prefetch, ``packed_forward``, a
+    synchronous ``.cpu().numpy()`` on the calling thread, then the host
+    tail of that batch on a pool while the next batch is issued.  With
+    ``issue_log`` (a list) each batch appends the seconds of its
+    ``packed_forward`` call on the host clock."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchpiv_tpu_torch.io.prefetch import PairPrefetcher
+    from torchpiv_tpu_torch.pipeline import finalize_fields, packed_forward
+
+    engine = piv.engine
+    x, y = engine.final_coordinates
+    tail_validates = engine.config.validate and engine.config.infill == "host"
+    static = engine.window_masked[-1]
+    static = None if static is None else static.cpu().numpy()
+
+    def tail(ids, packed):
+        return [finalize_fields(packed[i, 0], packed[i, 1],
+                                packed[i, 2] > 0.5 if tail_validates else None,
+                                x, y, piv._scale, piv._dt, static)
+                for i in range(len(ids))]
+
+    out = []
+    prefetch = PairPrefetcher(piv._dataset, piv._batch, engine.device,
+                              num_threads=piv._decode_threads, depth=2)
+    with ThreadPoolExecutor(max_workers=max(1, piv._decode_threads)) as pool:
+        pending = None
+        for a, b, ids in prefetch:
+            t0 = time.perf_counter()
+            packed = packed_forward(engine, a, b)
+            if issue_log is not None:
+                issue_log.append(time.perf_counter() - t0)
+            packed = packed.cpu().numpy()
+            done, pending = pending, pool.submit(tail, ids, packed)
+            if done is not None:
+                out += [r for r in done.result() if r is not None]
+        if pending is not None:
+            out += [r for r in pending.result() if r is not None]
+    return out
+
+
+def phase_serial_against_pipelined(folder: str) -> dict:
+    """``serial_yardstick`` against ``OfflinePIV()`` in turns (serial,
+    pipelined, pipelined, serial) over the ``N_LINKED`` linked pairs, one
+    instance and so one engine, for CWS unfused and ``fused="on"``; the
+    pipelined fields must equal the serial ones bit for bit.  Then one more
+    pipelined run with its spans.  Both are run once untimed first, so
+    that each starts with the caching allocator warm on its streams.
+    Returns ``{label: pairs/s by kind}``; speed is reported, not checked."""
+    from torchpiv_tpu_torch import OfflinePIV
+
+    out = {}
+    for label, options in (("CWS", {}), ("CWS fused=on", {"fused": "on"})):
+        piv = OfflinePIV(folder, wind_size=64, overlap=32, multipass=2,
+                         batch_size=BATCH, engine_options=options)
+        serial_yardstick(piv)
+        list(piv())
+        rates = {"serial": [], "pipelined": []}
+        runs = {}
+        issue = []  # the serial runs' packed_forward calls
+        for kind in ("serial", "pipelined", "pipelined", "serial"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fields = serial_yardstick(piv, issue) if kind == "serial" else list(piv())
+            rates[kind].append(len(fields) / (time.perf_counter() - t0))
+            check(len(fields) == N_LINKED, f"{label} {kind}: {len(fields)} fields")
+            if kind in runs:
+                same_fields(fields, runs[kind], f"{label} {kind}, second run")
+            else:
+                runs[kind] = fields
+        same_fields(runs["pipelined"], runs["serial"], f"{label}: pipelined against serial")
+        out[label] = {kind: {"median": float(np.median(r)), "spread": max(r) - min(r),
+                             "runs": r} for kind, r in rates.items()}
+        out[label]["serial"]["issue_ms_median"] = float(np.median(issue)) * 1e3
+        log(json.dumps({"turns": label, "pairs": N_LINKED, "pairs_per_s": out[label]}))
+        log(f"{label}: {N_LINKED} linked pairs, serial {out[label]['serial']['median']:.3f} "
+            f"pairs/s (spread {out[label]['serial']['spread']:.3f}), pipelined "
+            f"{out[label]['pipelined']['median']:.3f} (spread "
+            f"{out[label]['pipelined']['spread']:.3f}); fields bit-equal; serial "
+            f"issue {out[label]['serial']['issue_ms_median']:.3f} ms a batch (median)")
+        del runs
+        piv.span_log = []
+        t0 = time.perf_counter()
+        n = len(list(piv()))
+        span_report(f"{label}, {N_LINKED} linked pairs", piv.span_log, t0,
+                    time.perf_counter() - t0)
+        check(n == N_LINKED, f"{label}: {n} fields in the span run")
+    return out
+
+
+def phase_background_preprocess(rough: str, uniform: str, tmp: str, kernels) -> None:
+    """One batch of ``background="auto"`` over the rough pairs, equal bit for
+    bit to an engine of the same configuration on frames whose background
+    was subtracted on the host (the saturating uint8 subtract is exact), and
+    one batch of ``preprocess="clahe"`` over the uniform pairs."""
+    from torchpiv_tpu_torch import OfflinePIV
+    from torchpiv_tpu_torch.io.dataset import PIVDataset, compute_background
+    from torchpiv_tpu_torch.io.decode import imwrite_gray
+
+    kw = dict(wind_size=64, overlap=32, multipass=2, batch_size=BATCH, max_pairs=BATCH)
+    piv = OfflinePIV(rough, background="auto", **kw)
+    fields, launches, _ = drive(piv, kernels)
+    check_fields(fields, piv, BATCH)
+    check(launches == only(launches, shift_windows=2), f"background: launches {launches}")
+    ds = PIVDataset(rough, ".bmp")
+    ds.img_pairs = ds.img_pairs[:BATCH]
+    bg = compute_background(ds)
+    clean = os.path.join(tmp, "clean")
+    os.makedirs(clean)
+    for i in range(BATCH):
+        for frame, tag in zip(ds[i], "ab"):
+            imwrite_gray(os.path.join(clean, f"p{i}_{tag}.bmp"),
+                         np.where(frame > bg, frame - bg, 0).astype(np.uint8))
+    want = list(OfflinePIV(clean, **kw)())
+    check(len(want) == BATCH, "cleaned frames: a pair is missing")
+    same_fields(fields, want, "background=auto against frames cleaned on the host")
+    log(f"background=auto: one batch of the rough pairs, background mean "
+        f"{bg.mean():.3f} grey levels (max {int(bg.max())}), fields equal bit for bit "
+        f"to frames cleaned on the host")
+
+    piv = OfflinePIV(uniform, preprocess="clahe", **kw)
+    fields, launches, _ = drive(piv, kernels)
+    check_fields(fields, piv, BATCH)
+    check(launches == only(launches, shift_windows=2), f"clahe: launches {launches}")
+    check_displacement(fields, "preprocess=clahe (one batch)")
+    pairs = [piv._dataset[i] for i in range(BATCH)]
+    a = torch.from_numpy(np.stack([p[0] for p in pairs])).cuda()
+    b = torch.from_numpy(np.stack([p[1] for p in pairs])).cuda()
+    _, _, inval = piv.engine(a, b)
+    valid = 1.0 - inval.float().mean().item()
+    log(f"preprocess=clahe: valid share {valid:.4f} over the batch")
+    check(valid > 0.95, f"preprocess=clahe: valid share {valid}")
 
 
 def phase_variant_paths(folder: str, kernels, rolls_fields, split_fields) -> dict:
@@ -1202,8 +1431,17 @@ def phase_profile(folder: str, label: str, frame_mask=None, **cfg_kw) -> dict:
     engine = MultipassPIV(PIVConfig(frame_shape=FRAME, wind_size=64, overlap=32,
                                     multipass=2, **cfg_kw), frame_mask=frame_mask)
     ms = cuda_ms(lambda: packed_forward(engine, a, b), reps=5)
+    issue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packed_forward(engine, a, b)
+        issue.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    issue_ms = float(np.median(issue)) * 1e3
     log(f"engine {label}: {ms:.3f} ms per batch of {BATCH} = {ms / BATCH:.3f} "
-        f"ms/pair (device-resident uint8 frames, host tail excluded)")
+        f"ms/pair (device-resident uint8 frames, host tail excluded); the host "
+        f"issues it in {issue_ms:.3f} ms (median of 5, no other thread busy)")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -1224,7 +1462,7 @@ def phase_profile(folder: str, label: str, frame_mask=None, **cfg_kw) -> dict:
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
         log(f"profile {label}: {e.self_device_time_total / 1e3:8.3f} ms  "
             f"x{e.count:<4d} {e.key[:90]}")
-    return {"ms_pair": ms / BATCH, "ms_batch": ms, "peak_bytes": peak,
+    return {"ms_pair": ms / BATCH, "ms_batch": ms, "issue_ms": issue_ms, "peak_bytes": peak,
             "device_ms": total / 1e3,
             "n_device_events": sum(e.count for e in events),
             "kernels": {e.key: e.self_device_time_total / 1e3 for e in events}}
@@ -1290,15 +1528,17 @@ def main() -> int:
         uniform = os.path.join(tmp, "uniform")
         shear = os.path.join(tmp, "shear")
         rough = os.path.join(tmp, "rough")
+        linked = os.path.join(tmp, "linked")
         t0 = time.perf_counter()
         write_pairs(uniform, N_PAIRS, DISPLACEMENT, seed=100)
         write_pairs(shear, N_SHEAR_PAIRS, shear_flow(*SHEAR), seed=200)
         write_rough_pairs(uniform, rough, seed=300)
+        link_pairs(uniform, linked, N_LINKED)
         log(f"wrote {N_PAIRS} + {N_SHEAR_PAIRS} + {N_PAIRS} pairs of {FRAME} in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{time.perf_counter() - t0:.1f} s, and {N_LINKED} hard links to the first")
         rows = phase_kernels(uniform)
         log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
-        cws_launches, pairs_per_s, cws_fields = phase_main_path(uniform, KERNELS)
+        cws_launches, pairs_per_s, cws_fields, cws_spans = phase_main_path(uniform, KERNELS)
         def_launches, def_pairs_per_s = phase_def_path(shear, KERNELS)
         bicubic_launches = phase_bicubic_paths(shear, KERNELS)
         fused_runs = phase_fused_paths(uniform, shear, KERNELS)
@@ -1307,17 +1547,22 @@ def main() -> int:
         robust_launches, robust_pairs_per_s = phase_robust_paths(rough, KERNELS)
         del cws_fields
         log(f"paths done at {time.perf_counter() - t_start:.1f} s")
+        phase_serial_against_pipelined(linked)
+        phase_background_preprocess(rough, uniform, tmp, KERNELS)
+        log(f"pipeline phases done at {time.perf_counter() - t_start:.1f} s")
         cws = phase_profile(uniform, "CWS")
         log(f"CWS path: engine busy share {cws['ms_pair'] * pairs_per_s / 1e3:.3f} "
-            f"(engine ms/pair x pairs/s; the rest is host work the card waits on)")
-        for fused, (_, fused_pairs_per_s, _) in fused_runs.items():
+            f"(engine ms/pair x pairs/s; the rest is host work the card waits on), "
+            f"{cws_spans['busy_share_spans']:.3f} from the spans (device ms over wall)")
+        for fused, (_, fused_pairs_per_s, _, spans) in fused_runs.items():
             prof = phase_profile(uniform, f"CWS fused={fused}", fused=fused)
             check_fused_profile(prof, cws, f"CWS fused={fused}")
             log(f"CWS fused={fused}: engine {prof['ms_batch']:.3f} ms per batch "
                 f"(unfused {cws['ms_batch']:.3f}), peak memory "
                 f"{prof['peak_bytes'] / 2**20:.1f} MiB (unfused "
                 f"{cws['peak_bytes'] / 2**20:.1f}), busy share "
-                f"{prof['ms_pair'] * fused_pairs_per_s / 1e3:.3f}")
+                f"{prof['ms_pair'] * fused_pairs_per_s / 1e3:.3f}, "
+                f"{spans['busy_share_spans']:.3f} from the spans")
         xla_ms = phase_profile(shear, "DEF peakfit=xla", multipass_mode="DEF")["ms_pair"]
         def_ms = phase_profile(shear, "DEF peakfit=pallas", multipass_mode="DEF",
                                peakfit="pallas")["ms_pair"]
@@ -1357,10 +1602,13 @@ def main() -> int:
                "shift_windows_mxu": variant_runs["mxu"],
                "shift_windows_phases": robust_launches}
     check([r["name"] for r in rows] != [] and
-          sorted(r["name"] for r in rows) == sorted(k.__name__ for k in KERNELS),
-          "the kernels line does not list every kernel of the package")
+          sorted(r["name"] for r in rows) == sorted([k.__name__ for k in KERNELS]
+                                                    + [ANATOMY_ROW]),
+          "the kernels line does not list every kernel of the package and the "
+          "anatomy tool's")
     for row in rows:
-        row["launches"] = on_path[row["name"]][row["name"]]
+        if row["name"] != ANATOMY_ROW:  # that row counts the tool's own run
+            row["launches"] = on_path[row["name"]][row["name"]]
         check(row["launches"] > 0, f"{row['name']} was not launched on its path")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,8 +1,9 @@
 """The port on an NVIDIA card: each CUDA kernel (bilinear and bicubic window
 shift, the four bilinear shift variants, window deformation, fused peak fit,
 correlate-and-fit, whole pass) against its plain PyTorch version, the CUDA
-engine against the CPU engine (shift variants and robust knobs too), and the
-kernels' launches on the OfflinePIV paths.  Every test skips without a CUDA
+engine against the CPU engine (shift variants and robust knobs too), the
+kernels' launches on the OfflinePIV paths, the pipeline's stages and
+background on the card, and the exact modes of the shift-anatomy tool.  Every test skips without a CUDA
 device.  The file imports neither JAX nor the JAX package, so it also runs
 where JAX is not installed:
 
@@ -19,6 +20,11 @@ on at most 0.1% of the windows (one window where there are fewer than
 1000), the integer peak is the same on at least 99.9%, and on jointly valid
 windows ``u, v`` agree within RMS 1e-4 px and 1e-3 px at most; engines
 within the port's parity budget (< 2% mask mismatch, RMS < 0.01 px)."""
+import importlib.util
+import pathlib
+import shutil
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -534,6 +540,100 @@ def test_offline_piv_variant_paths_launch_their_kernels(card, tmp_path, options,
         assert np.array_equal(u, ru) and np.array_equal(v, rv)
         assert (u[masked] == 0).all() and (v[masked] == 0).all()
         assert abs(np.median(u[~masked]) / 1000 - 3.3) < 0.1
+
+
+def _write_pairs(folder, n, glare=None):
+    for i in range(n):
+        fa, fb = particle_pair((256, 256), (3.3, -2.1), seed=60 + i)
+        if glare is not None:
+            fa = np.clip(fa + glare, 0, 255).astype(np.uint8)
+            fb = np.clip(fb + glare, 0, 255).astype(np.uint8)
+        imwrite_gray(str(folder / f"p{i}_a.bmp"), fa)
+        imwrite_gray(str(folder / f"p{i}_b.bmp"), fb)
+
+
+def test_offline_piv_pipeline_on_the_card(card, tmp_path):
+    """The three stages on the card: pinned results (a short last batch
+    included) equal to a serial loop's on the default stream, the CUDA
+    spans measured, the transfer log complete, no thread left behind."""
+    from torchpiv_tpu_torch.io.prefetch import PairPrefetcher
+    from torchpiv_tpu_torch.pipeline import finalize_fields, packed_forward
+
+    _write_pairs(tmp_path, 5)
+    piv = OfflinePIV(str(tmp_path), multipass=2, batch_size=2)
+    piv.span_log, piv.transfer_log = [], []
+    fields = list(piv())
+    x, y = piv.engine.final_coordinates
+    serial = []
+    for a, b, ids in PairPrefetcher(piv._dataset, 2, card):
+        packed = packed_forward(piv.engine, a, b).cpu().numpy()
+        serial += [finalize_fields(packed[i, 0], packed[i, 1], packed[i, 2] > 0.5,
+                                   x, y, 1.0, 1) for i in range(len(ids))]
+    assert len(fields) == len(serial) == 5
+    for got, want in zip(fields, serial):
+        assert all(np.array_equal(p, q) for p, q in zip(got, want))
+    assert [s["pairs"] for s in piv.span_log] == [2, 2, 1]
+    for s in piv.span_log:
+        assert s["pin_s"] > 0 and s["h2d_ms"] > 0 and s["device_ms"] > 0 and s["d2h_ms"] > 0
+    assert sum(nb for _, _, nb in piv.transfer_log) == 5 * 2 * 256 * 256
+    assert not [t for t in threading.enumerate() if t.name.startswith("piv-")]
+
+
+def test_offline_piv_background_on_the_card(card, tmp_path):
+    """``background="auto"`` on the device: the fields of frames whose
+    background was subtracted on the host, bit for bit."""
+    from torchpiv_tpu_torch.io.dataset import PIVDataset, compute_background
+
+    glare = np.zeros((256, 256), np.int32)
+    glare[96:128] = 90
+    (tmp_path / "raw").mkdir()
+    (tmp_path / "clean").mkdir()
+    _write_pairs(tmp_path / "raw", 3, glare)
+    raw = PIVDataset(str(tmp_path / "raw"), ".bmp")
+    bg = compute_background(raw)
+    for i in range(len(raw)):
+        for f, tag in zip(raw[i], "ab"):
+            imwrite_gray(str(tmp_path / "clean" / f"p{i}_{tag}.bmp"),
+                         np.where(f > bg, f - bg, 0).astype(np.uint8))
+    got = list(OfflinePIV(str(tmp_path / "raw"), multipass=2, batch_size=2,
+                          background="auto")())
+    want = list(OfflinePIV(str(tmp_path / "clean"), multipass=2, batch_size=2)())
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        assert all(np.array_equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.parametrize("mode", ["full", "cpasync"])
+def test_anatomy_tool_exact_modes_equal_the_plain_version(card, mode):
+    """``tools/shift_anatomy_cuda.py``: the committed kernel and its
+    ``cp.async`` staging, built from edited copies of the sources, give
+    ``blend_reference``'s windows bit for bit."""
+    from torchpiv_tpu_torch.kernels import _build
+    from torchpiv_tpu_torch.kernels.shift import launch
+    from torchpiv_tpu_torch.ops.shifts import blend_reference, shift_operands
+
+    spec = importlib.util.spec_from_file_location(
+        "shift_anatomy_cuda",
+        pathlib.Path(__file__).resolve().parents[1] / "tools" / "shift_anatomy_cuda.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    shape, w, o = (256, 320), tool.W, tool.O
+    n = ((shape[0] - w) // (w - o) + 1) * ((shape[1] - w) // (w - o) + 1)
+    g = torch.Generator().manual_seed(3)
+    frames = (torch.rand(2, *shape, generator=g) * 255).round().to(card)
+    vx, vy = ((torch.rand(2, n, generator=g) * 48 - 24).to(card) for _ in range(2))
+    ops = shift_operands(frames, vx, vy, frame_shape=shape, wind_size=w, overlap=o)
+    csrc = _build.CSRC
+    ((copy, ptxas),) = tool.build([mode]).values()
+    try:
+        with tool.pointed_at(copy):
+            got = launch(ops, w)
+            torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(copy)
+    assert _build.CSRC == csrc
+    assert ptxas["registers"] > 0 and ptxas["spill_stores"] == 0
+    assert torch.equal(got, blend_reference(ops, w))
 
 
 def test_tf32_on_is_refused(card, monkeypatch):

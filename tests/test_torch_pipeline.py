@@ -2,7 +2,9 @@
 OfflinePIV (running the interpreted Pallas kernels) on the same BMP folder,
 also with a region-of-interest mask, a shift variant and the robust knobs,
 the host tail, the I/O copies, the prefetcher, the device rules, and a
-source scan that keeps JAX and the JAX package out of the port."""
+source scan that keeps JAX and the JAX package out of the port and its
+CUDA tools.  The pipeline's threads, background and preprocess are in
+``test_torch_threads.py``."""
 import ast
 import pathlib
 
@@ -238,7 +240,6 @@ def test_offline_piv_skip_and_max_pairs(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(background="auto"), dict(preprocess="clahe"),
     dict(engine_options={"dtype": "bfloat16"}),
     dict(engine_options={"cws_interp": "bicubic", "shift_variant": "mxu"}),
 ])
@@ -271,7 +272,10 @@ def _imported_modules(path):
 
 
 def test_port_never_imports_jax_or_the_jax_package():
-    files = sorted((REPO / "torchpiv_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    tools = sorted((REPO / "tools").glob("*_cuda.py"))
+    assert len(tools) >= 2
+    files = (sorted((REPO / "torchpiv_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + tools)
     assert len(files) > 15
     for path in files:
         for mod in _imported_modules(path):

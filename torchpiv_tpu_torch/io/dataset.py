@@ -22,6 +22,26 @@ def natural_keys(text: str):
     return [int(c) if c.isdigit() else c for c in re.split(r"(\d+)", text)]
 
 
+def compute_background(dataset, n_pairs: int = 20) -> Optional[np.ndarray]:
+    """Temporal-minimum background image over the first ``n_pairs`` pairs.
+    (Copy of ``compute_background`` in ``torchpiv_tpu/io/dataset.py``.)
+
+    Stationary glare and wall reflections survive a per-pixel minimum while
+    moving particles do not; subtracting it before analysis raises the
+    correlation's signal-to-noise ratio.
+    """
+    bg = None
+    count = 0
+    for i in range(min(len(dataset), n_pairs)):
+        a, b = dataset[i]
+        if a is None:
+            continue
+        m = np.minimum(a, b)
+        bg = m if bg is None else np.minimum(bg, m)
+        count += 1
+    return bg if count else None
+
+
 def list_pairs(folder: str, file_fmt: str, folder_mode: str) -> List[Tuple[str, str]]:
     filenames = [
         os.path.join(folder, name)

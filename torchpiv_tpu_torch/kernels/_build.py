@@ -64,13 +64,15 @@ def _start(name: str):
     return proc, tmp, so
 
 
-def _finish(name: str, started) -> None:
+def _finish(name: str, started) -> str:
+    """Wait for a started ``nvcc``; returns what it printed."""
     proc, tmp, so = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log}")
     os.replace(tmp, so)
+    return log
 
 
 def sources() -> list:

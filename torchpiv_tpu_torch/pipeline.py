@@ -7,30 +7,42 @@ folder_mode)``; calling it returns a generator of ``(x, y, u, v)`` numpy
 fields per image pair, with the validation NaN/infill tail, the axis flip
 and the physical-unit conversion.
 
-Per batch the engine runs once over ``[B, H, W]`` frames, its results are
-packed into one ``[B, 3, R, C]`` float32 tensor (``u``, ``v``, invalid) and
-copied to the host once.  Decoding and the host-to-device copies run ahead
-in ``io.prefetch``; the host tail of a batch runs on a thread pool while the
-card computes the next batch.
+Calling it runs the JAX ``OfflinePIV``'s three stages, each on its own
+thread(s): the prefetcher's pool decodes (and preprocesses) frames and
+copies them to the device (``io.prefetch``); a feeder thread applies the
+background and runs the engine over ``[B, H, W]`` batches on the instance's
+own CUDA stream, packs the results into one ``[B, 3, R, C]`` float32 tensor
+(``u``, ``v``, invalid) and copies it with ``non_blocking=True`` into a
+pinned host buffer, with at most two batches issued and not yet drained; a
+drainer thread waits for each copy and fans the host tail over a pool.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
-from concurrent.futures import ThreadPoolExecutor
+import queue
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Generator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .config import PIVConfig
-from .io.dataset import PIVDataset
+from .io.dataset import PIVDataset, compute_background
 from .io.decode import imread_gray
 from .io.prefetch import PairPrefetcher
+from .io.preprocess import PreprocessedPairs, resolve_preprocess
 from .models.multipass import MultipassPIV
 from .ops.infill import fill_missing_values, interpolate_borders
 from .utils.device import resolve_device
 
 log = logging.getLogger("torchpiv_tpu_torch")
+
+# pinned [B, 3, R, C] result buffers a call keeps on CUDA: one being written
+# by the feeder, two issued and not yet drained, one in the drainer
+HOST_BUFFERS = 4
 
 
 def finalize_fields(
@@ -99,16 +111,40 @@ def resolve_frame_mask(mask):
     return np.asarray(mask).astype(bool)
 
 
+
+
 class OfflinePIV:
     """Folder -> generator of (x, y, u, v) fields.  The reference API.
 
     Keyword-only knobs beyond the reference signature: ``batch_size``
     (pairs per engine call), ``validate``/``val_ratio``, ``decode_threads``,
-    ``skip_pairs``/``max_pairs``, and any ``PIVConfig`` field via
+    ``skip_pairs``/``max_pairs``, ``background`` (``"none"``, ``"auto"``: the
+    temporal minimum of the first pairs, or a ``[H, W]`` array taken as
+    uint8; subtracted with saturation before the engine), ``preprocess``
+    (``"none"``, ``"clahe"``, ``"stretch"`` or a frame -> frame callable, run
+    in the decode threads), and any ``PIVConfig`` field via
     ``engine_options``.  ``engine_options`` also takes ``frame_mask`` (a
     ``[H, W]`` bool array, True = excluded, or the path of a mask image) and
     ``mask_threshold``: masked windows come out with zero displacement.
     ``device`` defaults to the CUDA card.
+
+    Two attributes, None by default, switch on accounting that changes no
+    result; set them to a list before calling the instance:
+
+    * ``transfer_log``: each batch placed on the device appends
+      ``(t_start, t_end, n_bytes)`` (``io.prefetch.PairPrefetcher``);
+    * ``span_log``: each drained batch appends a dict of its host spans:
+      ``pairs``; ``decode_s`` and ``pin_s`` (decode and pinned staging, on a
+      decode thread); ``h2d_ms`` (CUDA events around the copies on the
+      prefetch stream); ``load_s`` (the feeder waiting for the batch from
+      the prefetcher); ``issue_s`` (host clock around the background
+      subtract and the engine call on the feeder); ``device_ms`` (CUDA events around the engine on the
+      feeder's stream) and ``d2h_ms`` (around the result's copy);
+      ``wait_s`` (the drainer blocked on that copy); ``tail_s`` (the
+      ``finalize_fields`` fan-out, until every field of the batch is
+      handed to the caller's queue); ``first_field_t`` (``time.perf_counter``
+      when the batch's first field was yielded; None if every pair of it
+      was skipped).  The CUDA event spans are None on the CPU.
     """
 
     def __init__(
@@ -135,18 +171,14 @@ class OfflinePIV:
         preprocess="none",
         engine_options: Optional[dict] = None,
     ) -> None:
-        if not (isinstance(background, str) and background == "none"):
-            raise ValueError("background subtraction is not ported to the "
-                             "PyTorch engine yet (background='none')")
-        if not (isinstance(preprocess, str) and preprocess == "none"):
-            raise ValueError("frame preprocessing is not ported to the "
-                             "PyTorch engine yet (preprocess='none')")
         engine_options = dict(engine_options or {})
         frame_mask = resolve_frame_mask(engine_options.pop("frame_mask", None))
         mask_threshold = engine_options.pop("mask_threshold", 0.5)
         self._dt = dt
         self._scale = scale
         self._batch = max(1, batch_size)
+        # a small first batch: the first field arrives sooner
+        self._first_batch = min(4, self._batch)
         self._device = resolve_device(device)
         self._decode_threads = decode_threads
         self._dataset = PIVDataset(folder, file_fmt, folder_mode)
@@ -154,6 +186,30 @@ class OfflinePIV:
             self._dataset.img_pairs = self._dataset.img_pairs[skip_pairs:]
         if max_pairs is not None:
             self._dataset.img_pairs = self._dataset.img_pairs[:max_pairs]
+        # frame conditioning runs in the prefetcher's decode threads; the
+        # background estimate and the engine see the conditioned frames
+        pp = resolve_preprocess(preprocess)
+        if pp is not None:
+            self._dataset = PreprocessedPairs(self._dataset, pp)
+        if isinstance(background, str):
+            if background == "auto":
+                background = compute_background(self._dataset)
+            elif background == "none":
+                background = None
+            else:
+                raise ValueError(f"unknown background option {background!r}")
+        else:
+            background = np.asarray(background, dtype=np.uint8)
+        self._background: Optional[torch.Tensor] = None
+        if background is not None:  # on the device once
+            self._background = torch.from_numpy(background).to(self._device)
+        self.transfer_log: Optional[list] = None
+        self.span_log: Optional[list] = None
+        # the feeder's stream and the prefetcher's copy stream, made at the
+        # first call and kept: the caching allocator keeps freed device
+        # blocks per stream, so streams made anew for every call would start
+        # each call without cached blocks (cudaMalloc on the first batches)
+        self._streams: Optional[Tuple[torch.cuda.Stream, torch.cuda.Stream]] = None
         self._engine_kwargs = dict(
             wind_size=wind_size,
             overlap=overlap,
@@ -184,9 +240,26 @@ class OfflinePIV:
         return len(self._dataset)
 
     def __call__(self) -> Generator:
+        """Three stages, each on its own thread(s), as in the JAX
+        ``OfflinePIV``:
+
+        * prefetcher threads: disk -> decode -> pinned staging -> async H2D;
+        * feeder thread (``piv-feeder``): background, engine and the async
+          D2H of the packed results into pinned buffers, on the instance's
+          own CUDA stream, with at most two batches issued and not yet
+          drained;
+        * drainer thread (``piv-drainer``): waits for each batch's copy and
+          fans ``finalize_fields`` over a pool.
+
+        Fields come out in sorted pair order; errors of either thread are
+        raised here; closing the generator early stops and joins both.
+        """
         if self._engine is None:
             return
         engine = self._engine
+        dev = self._device
+        cuda = dev.type == "cuda"
+        bg = self._background
         x, y = engine.final_coordinates
         # the host NaN + infill tail runs only for infill="host": "fused"
         # is filled on the device already, "none" asks for raw vectors
@@ -194,30 +267,195 @@ class OfflinePIV:
         static_mask = engine.window_masked[-1]
         if static_mask is not None:
             static_mask = static_mask.cpu().numpy()
-        prefetch = PairPrefetcher(self._dataset, self._batch, self._device,
-                                  num_threads=self._decode_threads, depth=2)
+        span_log = self.span_log
+        timing = span_log is not None
+        if cuda and self._streams is None:
+            self._streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+        feed, copies = self._streams if cuda else (None, None)
+        prefetch = PairPrefetcher(
+            self._dataset, self._batch, dev, num_threads=self._decode_threads,
+            # three batches in flight keep the copies fed across the seams
+            depth=3, first_batch_size=self._first_batch,
+            transfer_log=self.transfer_log, spans=timing, stream=copies)
 
-        def tail(ids, packed):
-            return [(pid, finalize_fields(
-                        packed[i, 0], packed[i, 1],
-                        packed[i, 2] > 0.5 if tail_validates else None,
-                        x, y, self._scale, self._dt, static_mask))
-                    for i, pid in enumerate(ids)]
+        stop = threading.Event()
+        DONE = object()
+        # two issued-but-undrained batches bound device memory and give the
+        # drainer a full batch of lead time
+        pending_q: "queue.Queue" = queue.Queue(maxsize=2)
+        result_q: "queue.Queue" = queue.Queue(maxsize=4 * self._batch)
+        free_q: "queue.Queue" = queue.Queue()  # pinned result buffers
+        errors: list = []
+        if cuda:
+            for _ in range(HOST_BUFFERS):
+                free_q.put(torch.empty((self._batch, 3, *engine.final_field_shape),
+                                       dtype=torch.float32, pin_memory=True))
 
-        with ThreadPoolExecutor(max_workers=max(1, self._decode_threads)) as pool:
-            pending = None  # host tail of the previous batch
-            for batch_a, batch_b, ids in prefetch:
-                packed = packed_forward(engine, batch_a, batch_b).cpu().numpy()
-                done, pending = pending, pool.submit(tail, ids, packed)
-                if done is not None:
-                    yield from self._emit(done.result())
-            if pending is not None:
-                yield from self._emit(pending.result())
+        def put_interruptible(q, item):
+            """Bounded put that gives up when the pipeline is tearing down;
+            returns False if dropped."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
 
-    @staticmethod
-    def _emit(results):
-        for pid, res in results:
-            if res is None:
-                log.warning("pair %d skipped: too many invalid vectors", pid)
-                continue
-            yield res
+        def put_final(q, item):
+            """Deliver a sentinel however long the consumer stalls; while
+            tearing down (stop set: an error or an early close) evict to
+            make room."""
+            while True:
+                try:
+                    q.put(item, timeout=0.05)
+                    return
+                except queue.Full:
+                    if stop.is_set():
+                        try:
+                            q.get_nowait()
+                        except queue.Empty:
+                            pass
+
+        def take_buffer():
+            """A free pinned buffer, or None when tearing down."""
+            while not stop.is_set():
+                try:
+                    return free_q.get(timeout=0.1)
+                except queue.Empty:
+                    continue
+            return None
+
+        def issue(batch_a, batch_b, ids, span, load_s):
+            """The engine over one batch and the copy of its results; returns
+            the drainer's item, or None when tearing down."""
+            marks = None
+            if timing and cuda:
+                marks = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+                marks[0].record()
+            t0 = time.perf_counter()
+            if bg is not None:  # saturating background subtract
+                batch_a = torch.where(batch_a > bg, batch_a - bg, 0)
+                batch_b = torch.where(batch_b > bg, batch_b - bg, 0)
+            packed = packed_forward(engine, batch_a, batch_b)
+            issue_s = time.perf_counter() - t0
+            if not cuda:  # the result is host memory already
+                return ids, packed, None, None, (span, marks, load_s, issue_s)
+            if marks is not None:
+                marks[1].record()
+            buf = take_buffer()
+            if buf is None:
+                return None
+            host = buf[:len(ids)]
+            host.copy_(packed, non_blocking=True)
+            copied = torch.cuda.Event(enable_timing=timing)
+            copied.record()
+            # `packed` is freed on return, on the stream that made it
+            return ids, host, buf, copied, (span, marks, load_s, issue_s)
+
+        def feeder():
+            try:
+                with (torch.cuda.device(dev) if cuda else contextlib.nullcontext()), \
+                        (torch.cuda.stream(feed) if cuda else contextlib.nullcontext()):
+                    load_t = time.perf_counter()
+                    for batch_a, batch_b, ids, span in prefetch.batches():
+                        if stop.is_set():
+                            break
+                        start = time.perf_counter()
+                        log.info("load time %.3f s", start - load_t)
+                        item = issue(batch_a, batch_b, ids, span, start - load_t)
+                        if item is None or not put_interruptible(pending_q, item):
+                            break
+                        load_t = time.perf_counter()
+            except BaseException as e:  # noqa: BLE001 - forwarded to caller
+                errors.append(e)
+                stop.set()
+            finally:
+                put_final(pending_q, DONE)
+
+        def spans_of(n, stats, copied, wait_s):
+            """A drained batch's spans (see the class docstring)."""
+            pre, marks, load_s, issue_s = stats
+            h2d = pre.pop("h2d")
+            return {**pre, "pairs": n,
+                    "h2d_ms": h2d[0].elapsed_time(h2d[1]) if h2d else None,
+                    "load_s": load_s, "issue_s": issue_s,
+                    "device_ms": marks[0].elapsed_time(marks[1]) if marks else None,
+                    "d2h_ms": marks[1].elapsed_time(copied) if marks else None,
+                    "wait_s": wait_s, "tail_s": None, "first_field_t": None}
+
+        def drainer():
+            try:
+                with ThreadPoolExecutor(
+                    max_workers=max(2, self._decode_threads)
+                ) as pool:
+                    while True:
+                        item = pending_q.get()
+                        if item is DONE:
+                            break
+                        if stop.is_set():
+                            continue  # discard; keep consuming until DONE
+                        ids, host, buf, copied, stats = item
+                        t0 = time.perf_counter()
+                        if copied is not None:
+                            copied.synchronize()  # this batch's D2H copy
+                        t_wait = time.perf_counter()
+                        arr = host.numpy()
+                        u_b, v_b = arr[:, 0], arr[:, 1]
+                        inval_b = arr[:, 2] > 0.5
+                        futs = [
+                            pool.submit(
+                                finalize_fields, u_b[i], v_b[i],
+                                inval_b[i] if tail_validates else None,
+                                x, y, self._scale, self._dt, static_mask)
+                            for i in range(len(ids))
+                        ]
+                        span = None
+                        if timing:
+                            span = spans_of(len(ids), stats, copied, t_wait - t0)
+                            span_log.append(span)
+                        first = span  # goes with the batch's first field
+                        for pid, fut in zip(ids, futs):
+                            res = fut.result()
+                            if res is None:
+                                log.warning(
+                                    "pair %d skipped: too many invalid "
+                                    "vectors", pid)
+                                continue
+                            if not put_interruptible(result_q, (first, res)):
+                                break
+                            first = None
+                        # the pool's tasks read the buffer until they return
+                        wait(futs)
+                        if span is not None:
+                            span["tail_s"] = time.perf_counter() - t_wait
+                        if buf is not None:
+                            free_q.put(buf)
+                        log.info("batch of %d drained in %.3f s",
+                                 len(ids), time.perf_counter() - t0)
+            except BaseException as e:  # noqa: BLE001 - forwarded to caller
+                errors.append(e)
+                stop.set()
+            finally:
+                put_final(result_q, DONE)
+
+        feeder_t = threading.Thread(target=feeder, name="piv-feeder", daemon=True)
+        drainer_t = threading.Thread(target=drainer, name="piv-drainer", daemon=True)
+        feeder_t.start()
+        drainer_t.start()
+        try:
+            while True:
+                item = result_q.get()
+                if item is DONE:
+                    break
+                span, res = item
+                if span is not None:
+                    span["first_field_t"] = time.perf_counter()
+                yield res
+            if errors:
+                raise errors[0]
+        finally:
+            stop.set()
+            feeder_t.join(timeout=30)
+            drainer_t.join(timeout=30)
