@@ -8,8 +8,9 @@ Phases, each failing loudly:
 1. environment: torch/CUDA versions, the card's name and power limit, TF32
    off;
 2. build every CUDA kernel of the package from its sources, and print what
-   the compiler made of each instance of the two pass-fusion kernels
-   (registers a thread, shared memory a block; no instance may spill);
+   the compiler made of each instance of the two pass-fusion kernels and
+   of the two resampling kernels (registers a thread, shared memory a
+   block; no instance may spill);
 3. each kernel (bilinear and bicubic window shift, the four bilinear shift
    variants, window deformation, fused peak fit, correlate-and-fit, whole
    pass) against its plain PyTorch
@@ -20,7 +21,10 @@ Phases, each failing loudly:
    kernel, plain version, bound, and a yardstick that computes the same
    function where there is one (``grid_sample`` bilinear; for the two
    pass-fusion kernels the port's own unfused chain); the packed output of
-   the window shift against the repacked standard output; every shift
+   the window shift against the repacked standard output; the window shift
+   and the deformation bit for bit, timed on random maps and on smooth
+   ones like the main path's pass 2, beside their readings before the
+   redesign (``EARLIER_MS``); every shift
    variant also against the ``rolls`` kernel (bit-equal on 8-bit frames)
    and on a float-valued frame, where the bfloat16 variants must differ;
 4. the first path: ``OfflinePIV`` over 8 synthetic 2048x2048 BMP pairs with
@@ -47,11 +51,14 @@ Phases, each failing loudly:
    and no ``fftshift`` roll may appear in the fused profiles), DEF with
    both peak fits, the robust configuration and ``infill="fused"``;
 8. the CUDA engine against the CPU engine (plain versions) on one full-size
-   pair: CWS, DEF, ``split``, ``on`` and the robust configuration.
+   pair: CWS, DEF, DEF and CWS with bicubic resampling, ``split``, ``on``
+   and the robust configuration.
 
-Phase 3 also runs ``tools/shift_anatomy_cuda.py``'s five modes of the
-window-shift kernel at pass 2 (``full`` and ``cpasync`` bit-equal to the
-plain version).  Phases 4 and 6 print the pipeline's host spans per batch
+Phase 3 also runs ``tools/shift_anatomy_cuda.py``'s six modes of the
+window-shift kernel at pass 2 (``full``, ``noshuffle`` and ``rowbyrow``
+bit-equal to the plain version).  Phase 7 prints the CWS and DEF engines'
+device time beside their readings before the resampling kernels'
+redesign (``EARLIER_DEVICE_MS``).  Phases 4 and 6 print the pipeline's host spans per batch
 (``OfflinePIV.span_log``) on the CWS, ``split`` and ``on`` paths, and the
 busy share they give.  After phase 6: the serial loop the pipeline replaced
 (``serial_yardstick``) against the three-stage pipeline, in turns (serial,
@@ -97,7 +104,22 @@ ROBUST = dict(median_filter="normmedian", u_limits=(-8.0, 8.0),
 # run's readings, never into the kernels line)
 EARLIER_MS = {"correlate_peakfit": {"pass2": 2.213, "pass1": 1.827},
               "fused_piv_pass": {"pass2": 2.622, "pass1": 2.227},
-              "shift_windows_mxu": {"pass2": 0.895}}
+              "shift_windows_mxu": {"pass2": 0.895},
+              "shift_windows": {"pass2": 0.268},
+              "def_windows": {"pass2": 0.432, "bicubic": 0.787}}
+# a redesign must beat its earlier reading by more than this, and at most
+# this share of its yardstick's time at pass 2 (the unfused chain; a
+# shift's or a deformation's grid_sample)
+MARGIN_MS = 0.02
+YARDSTICK_SHARE = {"correlate_peakfit": 0.4, "fused_piv_pass": 0.4}
+# what the redesigns of the two resampling kernels aim at, ms at pass 2 on
+# the random maps (printed, not checked: a miss must still beat EARLIER_MS)
+TARGET_MS = {"shift_windows": {"pass2": 0.18},
+             "def_windows": {"pass2": 0.25, "bicubic": 0.55}}
+# the engines' device ms a batch of 4 (profile) that this script read on an
+# NVIDIA H100 80GB HBM3 at 700 W before the resampling kernels' redesign
+EARLIER_DEVICE_MS = {"CWS": 12.884, "DEF peakfit=pallas": 8.095}
+SMOOTH_SLOPE = 0.002  # px/px of the smooth maps' gradient
 FUSED_SHAPES = (("pass2", (32, 16), False), ("pass1", (64, 32), True),
                 ("w16", (16, 8), False), ("w128", (128, 64), True))
 VARIANT_LINES = {"bf16": 29, "lanephases": 111, "mxu": 195, "phases": 294}
@@ -151,6 +173,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _build.build()
     log(f"build: {_build.sources()} in {time.perf_counter() - t0:.2f} s")
+    from torchpiv_tpu_torch.kernels import deform, shift
     from torchpiv_tpu_torch.kernels.corrfit import describe
 
     for name in ("corrfit", "fused_pass"):
@@ -158,6 +181,17 @@ def phase_build() -> None:
             info = describe(name, w)
             log(f"instance {name} w{w}: {json.dumps(info)}")
             check(info["local_bytes"] == 0, f"{name} w{w} spills: {info}")
+    # the two resampling kernels: one instance per columns a lane (shift),
+    # per interpolation (DEF)
+    for w in (16, 32, 64, 96, 128):
+        info = shift.describe(w)
+        log(f"instance shift_windows w{w}: {json.dumps(info)}")
+        check(info["local_bytes"] == 0, f"shift_windows w{w} spills: {info}")
+    for interp in ("bilinear", "bicubic"):
+        for w, M in ((32, 2), (120, 1)):
+            info = deform.describe(w, M, interp)
+            log(f"instance def_windows {interp} w{w} M{M}: {json.dumps(info)}")
+            check(info["local_bytes"] == 0, f"def_windows {interp} spills: {info}")
 
 
 def shift_grid(ops, w: int) -> torch.Tensor:
@@ -217,9 +251,24 @@ def shift_cases(n: int, g) -> dict:
     }
 
 
+def smooth_maps(w: int, o: int):
+    """Per-window shifts ``[BATCH, N]`` like the main path's pass 2: the
+    uniform ``DISPLACEMENT`` plus a gradient of ``SMOOTH_SLOPE`` px/px across
+    the frame, so that neighbouring windows share their integer shift and
+    their fractions move slowly; ``(vx, vy)``."""
+    n_side = (FRAME[0] - w) // (w - o) + 1
+    pos = torch.arange(n_side, dtype=torch.float32) * (w - o)
+    pos = pos - pos.mean()
+    row, col = pos[:, None], pos[None, :]
+    vx = DISPLACEMENT[0] + SMOOTH_SLOPE * (col + row)
+    vy = DISPLACEMENT[1] + SMOOTH_SLOPE * (row - col)
+    return tuple(v.reshape(1, -1).expand(BATCH, -1).contiguous() for v in (vx, vy))
+
+
 def phase_shift_kernels(frames: torch.Tensor) -> list:
     """``shift_windows`` (bilinear) and ``shift_windows_bicubic`` against
-    their plain versions at the pass-2 shape."""
+    their plain versions at the pass-2 shape, bit for bit; the bilinear
+    kernel timed on the random maps and on smooth ones."""
     from torchpiv_tpu_torch.kernels.shift import launch, shift_windows
     from torchpiv_tpu_torch.ops.shifts import (blend_reference,
                                                blend_reference_bicubic,
@@ -229,11 +278,11 @@ def phase_shift_kernels(frames: torch.Tensor) -> list:
     n = window_count(w, o)
     dev = frames.device
     g = torch.Generator(device="cpu").manual_seed(0)
-    cases = shift_cases(n, g)
+    cases = {**shift_cases(n, g), "smooth": smooth_maps(w, o)}
     rows = []
-    for interp, plain, name, tol in (
-            ("bilinear", blend_reference, "shift_windows", 1e-4),
-            ("bicubic", blend_reference_bicubic, "shift_windows_bicubic", 1e-3)):
+    for interp, plain, name in (
+            ("bilinear", blend_reference, "shift_windows"),
+            ("bicubic", blend_reference_bicubic, "shift_windows_bicubic")):
         kw = dict(frame_shape=FRAME, wind_size=w, overlap=o, interp=interp)
         max_err = 0.0
         for case, (vx, vy) in cases.items():
@@ -245,14 +294,9 @@ def phase_shift_kernels(frames: torch.Tensor) -> list:
             err = (got - want).abs().max().item()
             max_err = max(max_err, err)
             log(f"{name} {case}: max |kernel - plain| = {err!r}")
-            # explicitly rounded sums in the plain version's order: equal to
-            # the last bit is expected; allowed are 1e-4 of a grey level
-            # (bilinear) and 1e-3 (bicubic) for fractional shifts, nothing
-            # for integer ones (tile copies; bicubic weights (0, 1, 0, 0))
-            if case == "integer" or (case == "mixed" and interp == "bilinear"):
-                check(torch.equal(got, want), f"{name} {case} must be bit-exact")
-            else:
-                check(err <= tol, f"{name} {case} shifts disagree by {err}")
+            # explicitly rounded sums in the plain version's order: nothing
+            # is allowed, fractional shifts included
+            check(torch.equal(got, want), f"{name} {case} must be bit-exact")
         if interp == "bicubic":  # integer shifts: the bilinear kernel's copy
             vx, vy = (t.to(dev) for t in cases["integer"])
             inside = (vx < w // 2) & (vy < w // 2)  # +S clamps the bilinear tile
@@ -264,6 +308,11 @@ def phase_shift_kernels(frames: torch.Tensor) -> list:
         vx, vy = (t.to(dev) for t in cases["fractional"])
         ops = shift_operands(frames, vx, vy, **kw)
         ms = cuda_ms(lambda: launch(ops, w, interp))
+        smooth = shift_operands(frames, *(t.to(dev) for t in cases["smooth"]), **kw)
+        smooth_ms = cuda_ms(lambda: launch(smooth, w, interp))
+        log(f"{name}: {ms:.4f} ms on the random maps, {smooth_ms:.4f} ms on the "
+            f"smooth ones")
+        del smooth
         wrapper_ms = cuda_ms(lambda: shift_windows(frames, vx, vy, **kw))
         plain_ms = cuda_ms(lambda: plain(ops, w), reps=5)
         library_ms = None
@@ -279,11 +328,13 @@ def phase_shift_kernels(frames: torch.Tensor) -> list:
         # a pixel: 4 products + 3 sums (bilinear); 4 rows of 4 products and
         # 4 sums, then 4 products and 4 sums (bicubic)
         n_flops = B * n * w * w * (7 if interp == "bilinear" else 40)
+        if name in EARLIER_MS:
+            compare_with_earlier(name, {"pass2": dict(ms=ms, library_ms=library_ms)})
         rows.append(kernel_row(
             name, f"{name}.cu",
             "torchpiv_tpu/kernels/shift_pallas.py:" + ("44" if interp == "bilinear" else "166"),
             max_err, ms, plain_ms, n_bytes, n_flops, library_ms,
-            wrapper_ms=wrapper_ms, shape=[B, Hp, Wp, n, w]))
+            wrapper_ms=wrapper_ms, smooth_ms=smooth_ms, shape=[B, Hp, Wp, n, w]))
     return rows
 
 
@@ -411,7 +462,8 @@ def def_grid(ops, w: int) -> torch.Tensor:
 
 def phase_def_kernel(frames: torch.Tensor) -> dict:
     """``def_windows`` against its plain version at the pass-2 shape, in both
-    interpolations."""
+    interpolations, bit for bit; timed on the random maps and on smooth
+    ones."""
     from torchpiv_tpu_torch.kernels.deform import def_windows, launch
     from torchpiv_tpu_torch.kernels.shift import shift_windows
     from torchpiv_tpu_torch.ops.deform import def_operands, def_reference
@@ -440,9 +492,13 @@ def phase_def_kernel(frames: torch.Tensor) -> dict:
         # gradients of up to 0.6 px/px: +-9 px across the window, far past
         # the margin of 2, so most residuals sit at the clip bounds
         "saturating": maps(24.0, 0.6),
+        # the main path's pass 2: smooth centres, the field's own gradient
+        "smooth": [t.to(dev) for t in smooth_maps(w, o)]
+        + [torch.full((BATCH, n), s, device=dev)
+           for s in (SMOOTH_SLOPE, -SMOOTH_SLOPE, SMOOTH_SLOPE, SMOOTH_SLOPE)],
     }
     out = {}
-    for interp, tol in (("bilinear", 1e-4), ("bicubic", 1e-3)):
+    for interp in ("bilinear", "bicubic"):
         kw = dict(frame_shape=FRAME, wind_size=w, overlap=o, margin=M, interp=interp)
         max_err = 0.0
         for case, m in cases.items():
@@ -454,8 +510,8 @@ def phase_def_kernel(frames: torch.Tensor) -> dict:
             max_err = max(max_err, err)
             log(f"def_windows {interp} {case}: max |kernel - plain| = {err!r}")
             # explicitly rounded residual, weights and sums in the plain
-            # version's order: equal to the last bit is expected
-            check(err <= tol, f"def_windows {interp} {case} disagrees by {err}")
+            # version's order: nothing is allowed
+            check(torch.equal(got, want), f"def_windows {interp} {case} must be bit-exact")
             if case == "general":
                 check(torch.equal(got[:, :n_int], want[:, :n_int]),
                       "integer-centre zero-gradient windows must be bit-exact")
@@ -472,6 +528,11 @@ def phase_def_kernel(frames: torch.Tensor) -> dict:
         m = cases["general"]
         ops = def_operands(frames, *m, **kw)
         ms = cuda_ms(lambda: launch(ops, w))
+        smooth = def_operands(frames, *cases["smooth"], **kw)
+        smooth_ms = cuda_ms(lambda: launch(smooth, w))
+        log(f"def_windows {interp}: {ms:.4f} ms on the random maps, {smooth_ms:.4f} "
+            f"ms on the smooth ones")
+        del smooth
         wrapper_ms = cuda_ms(lambda: def_windows(frames, *m, **kw))
         plain_ms = cuda_ms(lambda: def_reference(ops, w), reps=3)
         library_ms = None
@@ -492,8 +553,9 @@ def phase_def_kernel(frames: torch.Tensor) -> dict:
         out[interp] = dict(max_err=max_err, ms=ms, plain_ms=plain_ms,
                            n_bytes=n_bytes, n_flops=n_flops,
                            library_ms=library_ms, wrapper_ms=wrapper_ms,
-                           shape=[B, Hp, Wp, n, w, M])
+                           smooth_ms=smooth_ms, shape=[B, Hp, Wp, n, w, M])
     lin, cub = out["bilinear"], out["bicubic"]
+    compare_with_earlier("def_windows", {"pass2": lin, "bicubic": cub})
     cub_bound, cub_by = roofline(cub["n_bytes"], cub["n_flops"])
     # one row: the bilinear numbers under the contract's keys (the DEF path
     # of this script runs bilinear), the bicubic ones beside them
@@ -501,11 +563,11 @@ def phase_def_kernel(frames: torch.Tensor) -> dict:
         "def_windows", "def_windows.cu", "torchpiv_tpu/kernels/def_pallas.py:73",
         max(lin["max_err"], cub["max_err"]), lin["ms"], lin["plain_ms"],
         lin["n_bytes"], lin["n_flops"], lin["library_ms"],
-        wrapper_ms=lin["wrapper_ms"], shape=lin["shape"],
+        wrapper_ms=lin["wrapper_ms"], smooth_ms=lin["smooth_ms"], shape=lin["shape"],
         bicubic={"ms": cub["ms"], "plain_ms": cub["plain_ms"],
                  "bound_ms": cub_bound, "bound_by": cub_by,
                  "library_ms": None, "wrapper_ms": cub["wrapper_ms"],
-                 "max_abs_err": cub["max_err"]})
+                 "smooth_ms": cub["smooth_ms"], "max_abs_err": cub["max_err"]})
 
 
 def synthetic_maps(d: int, dev) -> torch.Tensor:
@@ -619,18 +681,23 @@ def fit_agreement(got, want, label: str) -> float:
 
 def compare_with_earlier(name: str, passes: dict) -> None:
     """Print this run's times of a redesigned kernel beside the earlier
-    design's, and hold it to what the redesign was for: faster than the
-    earlier design at both pass shapes, and at most 0.4 of the unfused chain
-    (or, a shift, no slower than ``grid_sample``) at the pass-2 shape."""
+    design's (and its target, where it has one), and hold it to what the
+    redesign was for: faster than the earlier design by more than
+    ``MARGIN_MS`` at every shape it was read at, and at pass 2 at most
+    ``YARDSTICK_SHARE`` of the unfused chain (a shift or a deformation: no
+    slower than ``grid_sample``)."""
     for label, was in EARLIER_MS[name].items():
         p = passes[label]
-        log(f"{name} {label}: {p['ms']:.4f} ms now, {was} ms before the redesign; "
-            f"yardstick {p['library_ms']:.4f} ms, ratio "
-            f"{p['ms'] / p['library_ms']:.3f}")
-        check(p["ms"] < was, f"{name} {label}: {p['ms']} ms is no faster than {was}")
-    limit = 1.0 if name == "shift_windows_mxu" else 0.4
+        target = TARGET_MS.get(name, {}).get(label)
+        yard = p.get("library_ms")
+        log(f"{name} {label}: {p['ms']:.4f} ms now, {was} ms before the redesign"
+            + (f"; target {target} ms, {'met' if p['ms'] <= target else 'MISSED'}"
+               if target is not None else "")
+            + (f"; yardstick {yard:.4f} ms, ratio {p['ms'] / yard:.3f}" if yard else ""))
+        check(p["ms"] < was - MARGIN_MS,
+              f"{name} {label}: {p['ms']} ms is not {MARGIN_MS} ms faster than {was}")
     p2 = passes["pass2"]
-    check(p2["ms"] <= limit * p2["library_ms"],
+    check(p2["ms"] <= YARDSTICK_SHARE.get(name, 1.0) * p2["library_ms"],
           f"{name}: {p2['ms']} ms against {p2['library_ms']} ms of its yardstick")
 
 
@@ -811,7 +878,7 @@ def phase_packed_shift(frames: torch.Tensor) -> None:
 
 
 def phase_shift_anatomy(frames: torch.Tensor) -> dict:
-    """``tools/shift_anatomy_cuda.py``'s five modes of ``shift_windows`` at
+    """``tools/shift_anatomy_cuda.py``'s six modes of ``shift_windows`` at
     pass 2; returns the kernels line's row of its ``full`` mode (the
     counterpart of ``make_kernel``), with the launches of the tool's run."""
     import importlib.util
@@ -1551,6 +1618,8 @@ def main() -> int:
         phase_background_preprocess(rough, uniform, tmp, KERNELS)
         log(f"pipeline phases done at {time.perf_counter() - t_start:.1f} s")
         cws = phase_profile(uniform, "CWS")
+        log(f"CWS engine: {cws['device_ms']:.3f} ms of device time a batch of {BATCH}; "
+            f"{EARLIER_DEVICE_MS['CWS']} ms before the resampling kernels' redesign")
         log(f"CWS path: engine busy share {cws['ms_pair'] * pairs_per_s / 1e3:.3f} "
             f"(engine ms/pair x pairs/s; the rest is host work the card waits on), "
             f"{cws_spans['busy_share_spans']:.3f} from the spans (device ms over wall)")
@@ -1564,8 +1633,12 @@ def main() -> int:
                 f"{prof['ms_pair'] * fused_pairs_per_s / 1e3:.3f}, "
                 f"{spans['busy_share_spans']:.3f} from the spans")
         xla_ms = phase_profile(shear, "DEF peakfit=xla", multipass_mode="DEF")["ms_pair"]
-        def_ms = phase_profile(shear, "DEF peakfit=pallas", multipass_mode="DEF",
-                               peakfit="pallas")["ms_pair"]
+        def_prof = phase_profile(shear, "DEF peakfit=pallas", multipass_mode="DEF",
+                                 peakfit="pallas")
+        def_ms = def_prof["ms_pair"]
+        log(f"DEF engine (peakfit=pallas): {def_prof['device_ms']:.3f} ms of device time "
+            f"a batch of {BATCH}; {EARLIER_DEVICE_MS['DEF peakfit=pallas']} ms before the "
+            f"resampling kernels' redesign")
         log(f"DEF path: engine {def_ms:.3f} ms/pair with peakfit=pallas, "
             f"{xla_ms:.3f} with peakfit=xla; busy share "
             f"{def_ms * def_pairs_per_s / 1e3:.3f}")
@@ -1590,6 +1663,9 @@ def main() -> int:
         phase_reference(rough, "robust", frame_mask=wall_mask(),
                         shift_variant="phases", **ROBUST)
         phase_reference(shear, "DEF", multipass_mode="DEF", peakfit="pallas")
+        phase_reference(shear, "DEF bicubic", multipass_mode="DEF", cws_interp="bicubic",
+                        peakfit="pallas")
+        phase_reference(shear, "CWS bicubic", cws_interp="bicubic")
         phase_reference(uniform, "CWS fused=split", fused="split")
         phase_reference(uniform, "CWS fused=on", fused="on")
     # each kernel's launches on the path that runs it

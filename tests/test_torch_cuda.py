@@ -3,16 +3,16 @@ shift, the four bilinear shift variants, window deformation, fused peak fit,
 correlate-and-fit, whole pass) against its plain PyTorch version, the CUDA
 engine against the CPU engine (shift variants and robust knobs too), the
 kernels' launches on the OfflinePIV paths, the pipeline's stages and
-background on the card, and the exact modes of the shift-anatomy tool.  Every test skips without a CUDA
+background on the card, and the exact modes of the two anatomy tools.  Every test skips without a CUDA
 device.  The file imports neither JAX nor the JAX package, so it also runs
 where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: integer shifts are tile copies and must match bit for bit;
-fractional bilinear shifts and deformations 1e-4 of a grey level, bicubic
-ones 1e-3 (the kernels round every product and sum in the plain version's
-order, so equality is expected); peak fit ``u, v`` 1e-5 px with equal masks
+Tolerances: the bilinear shift and the deformation (both interpolations)
+must match bit for bit, fractional shifts included (the kernels round every
+product and sum in the plain version's order); the bicubic shift 1e-3 for
+fractional shifts, nothing for integer ones; peak fit ``u, v`` 1e-5 px with equal masks
 (the kernel adds EPS after subtracting the minimum, the plain version
 ``EPS - min`` in one step); the correlate-and-fit and whole-pass kernels
 run their own FFT and sum in another order than ``torch.fft``: masks differ
@@ -32,15 +32,19 @@ import torch
 from torchpiv_tpu_torch import MultipassPIV, OfflinePIV, PIVConfig
 from torchpiv_tpu_torch.io.decode import imwrite_gray
 from torchpiv_tpu_torch.kernels.corrfit import correlate_peakfit, describe
+from torchpiv_tpu_torch.config import MAX_DEF_TILE, def_tile
 from torchpiv_tpu_torch.kernels.deform import def_windows
+from torchpiv_tpu_torch.kernels.deform import describe as def_describe
 from torchpiv_tpu_torch.kernels.fused_pass import fused_piv_pass
 from torchpiv_tpu_torch.kernels.peakfit import peakfit
 from torchpiv_tpu_torch.kernels.shift import (VARIANT_WRAPPERS, shift_windows,
                                               shift_windows_bicubic)
+from torchpiv_tpu_torch.kernels.shift import describe as shift_describe
 from torchpiv_tpu_torch.ops.corrfit import (correlate_peakfit_reference,
                                             fused_pass_reference)
 from torchpiv_tpu_torch.ops.correlate import correlate_fft
-from torchpiv_tpu_torch.ops.deform import def_windows_reference
+from torchpiv_tpu_torch.ops.deform import (BLOCK_WINDOWS, STAGES, block_geometry,
+                                           def_windows_reference)
 from torchpiv_tpu_torch.ops.packing import pack_windows
 from torchpiv_tpu_torch.ops.peakfit import correlation_to_displacement
 from torchpiv_tpu_torch.ops.shifts import shift_windows_reference
@@ -59,16 +63,34 @@ def card(monkeypatch):
     return torch.device("cuda")
 
 
+# every width the bilinear kernel serves differently: several windows a
+# warp (w <= 16), one with idle lanes (12, 24), one to four columns a lane
+WIDTHS = (4, 8, 12, 16, 24, 32, 48, 64, 128)
+
+
+def _ragged_shape(w, o, per_block, n_rows=3):
+    """A frame whose window grid has ``n_rows`` rows and a column count
+    that leaves the last block of a row part empty."""
+    step = w - o
+    n_cols = per_block + 3
+    return w + step * (n_rows - 1) + step - 1, w + step * (n_cols - 1) + step - 1
+
+
+@pytest.mark.parametrize("batch", [1, 5])
 @pytest.mark.parametrize("kind", ["integer", "fractional", "mixed"])
-@pytest.mark.parametrize("shape,w,o", [((256, 320), 32, 16), ((200, 260), 64, 32),
-                                       ((300, 300), 128, 64)])
-def test_kernel_matches_plain_version(card, shape, w, o, kind):
+@pytest.mark.parametrize("w", WIDTHS)
+def test_kernel_matches_plain_version(card, w, kind, batch):
+    """Bit for bit, fractional shifts too: the blend rounds every product
+    and sum in the plain version's order."""
+    o = w // 2
+    per_block = 8 * (32 // min(32, 1 << (w - 1).bit_length()))
+    shape = _ragged_shape(w, o, per_block)
     H, W = shape
     n = ((H - w) // (w - o) + 1) * ((W - w) // (w - o) + 1)
     g = torch.Generator().manual_seed(w)
-    frames = (torch.rand(3, H, W, generator=g) * 255).to(card)
-    vx = torch.rand(3, n, generator=g) * 3 * w - 1.5 * w  # past +-S = w/2
-    vy = torch.rand(3, n, generator=g) * 3 * w - 1.5 * w
+    frames = (torch.rand(batch, H, W, generator=g) * 255).to(card)
+    vx = torch.rand(batch, n, generator=g) * 3 * w - 1.5 * w  # past +-S = w/2
+    vy = torch.rand(batch, n, generator=g) * 3 * w - 1.5 * w
     if kind == "integer":
         vx, vy = vx.round(), vy.round()
     elif kind == "mixed":
@@ -80,10 +102,7 @@ def test_kernel_matches_plain_version(card, shape, w, o, kind):
     want = shift_windows_reference(frames, vx, vy, **kw)
     torch.cuda.synchronize()
     assert shift_windows.launches == before + 1
-    if kind == "fractional":
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
-    else:
-        assert torch.equal(got, want)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("values", ["uint8", "float"])
@@ -157,20 +176,31 @@ def test_bicubic_kernel_matches_plain_version(card, shape, w, o, kind):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
 
 
+# (w, margin): every width of WIDTHS that a DEF tile admits, an odd one
+# (integer in-window offsets), margins 1-4 and tiles up to 129
+DEF_CASES = ((4, 1), (8, 2), (12, 3), (16, 4), (24, 2), (32, 2), (33, 1), (48, 3),
+             (64, 4), (120, 2))
+
+
+@pytest.mark.parametrize("batch", [1, 5])
 @pytest.mark.parametrize("kind", ["general", "saturating", "integer"])
 @pytest.mark.parametrize("interp", ["bilinear", "bicubic"])
-@pytest.mark.parametrize("shape,w,o,margin", [
-    ((256, 320), 32, 16, 2), ((200, 260), 64, 32, 4), ((300, 300), 120, 60, 2),
-    ((256, 256), 33, 16, 1)])  # odd w: integer in-window offsets
-def test_def_kernel_matches_plain_version(card, shape, w, o, margin, interp, kind):
+@pytest.mark.parametrize("w,margin", DEF_CASES)
+def test_def_kernel_matches_plain_version(card, w, margin, interp, kind, batch):
+    """Bit for bit: the residual, weights and sums are rounded in the plain
+    version's order."""
+    if w == 120 and interp == "bilinear":
+        margin = 4  # the largest tile: 120 + 8 + 1 = 129
+    o = w // 2
+    shape = _ragged_shape(w, o, per_block=BLOCK_WINDOWS)
     H, W = shape
     n = ((H - w) // (w - o) + 1) * ((W - w) // (w - o) + 1)
     g = torch.Generator().manual_seed(w + margin)
-    frames = (torch.rand(2, H, W, generator=g) * 255).to(card)
-    vx = torch.rand(2, n, generator=g) * 3 * w - 1.5 * w  # past +-S = w/2
-    vy = torch.rand(2, n, generator=g) * 3 * w - 1.5 * w
+    frames = (torch.rand(batch, H, W, generator=g) * 255).to(card)
+    vx = torch.rand(batch, n, generator=g) * 3 * w - 1.5 * w  # past +-S = w/2
+    vy = torch.rand(batch, n, generator=g) * 3 * w - 1.5 * w
     slope = {"general": 0.05, "saturating": 0.6, "integer": 0.0}[kind]
-    grads = [((torch.rand(2, n, generator=g) * 2 - 1) * slope).to(card)
+    grads = [((torch.rand(batch, n, generator=g) * 2 - 1) * slope).to(card)
              for _ in range(4)]
     if kind == "integer":
         vx, vy = vx.round(), vy.round()
@@ -181,16 +211,38 @@ def test_def_kernel_matches_plain_version(card, shape, w, o, margin, interp, kin
     want = def_windows_reference(frames, vx, vy, *grads, **kw)
     torch.cuda.synchronize()
     assert def_windows.launches == before + 1
-    if kind == "integer":
-        assert torch.equal(got, want)
-        if interp == "bilinear":  # the shift kernel's integer copy, away from +S
-            copy = shift_windows(frames, vx, vy, frame_shape=shape, wind_size=w,
-                                 overlap=o)
-            inside = (vx < w // 2) & (vy < w // 2)
-            assert torch.equal(got[inside], copy[inside])
-    else:
-        torch.testing.assert_close(got, want, rtol=0,
-                                   atol=1e-4 if interp == "bilinear" else 1e-3)
+    assert torch.equal(got, want)
+    if kind == "integer" and interp == "bilinear":
+        # the shift kernel's integer copy, away from +S
+        copy = shift_windows(frames, vx, vy, frame_shape=shape, wind_size=w, overlap=o)
+        inside = (vx < w // 2) & (vy < w // 2)
+        assert torch.equal(got[inside], copy[inside])
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+def test_shift_kernel_does_not_spill(card, w):
+    info = shift_describe(w)
+    assert info["local_bytes"] == 0  # no spill, no stack frame
+    # four blocks of 256 threads an SM, two for three or four columns a lane
+    assert 0 < info["registers"] <= (64 if w <= 64 else 128)
+    assert info["shared_bytes"] == 0
+    assert info["threads"] == 256
+    assert info["windows"] == 8 * (32 // min(32, 1 << (w - 1).bit_length()))
+
+
+@pytest.mark.parametrize("interp", ["bilinear", "bicubic"])
+@pytest.mark.parametrize("w,margin", DEF_CASES)
+def test_def_kernel_does_not_spill(card, w, margin, interp):
+    if def_tile(w, margin, interp) > MAX_DEF_TILE:
+        margin = 1
+    info = def_describe(w, margin, interp)
+    assert info["local_bytes"] == 0
+    assert 0 < info["registers"] <= 85  # six blocks of 128 threads an SM
+    T = def_tile(w, margin, interp)
+    assert info["shared_bytes"] == STAGES * T * (T | 1) * 4  # rows at an odd pitch
+    assert info["shared_bytes"] <= 232448  # 227 KB a block on this card
+    assert info["threads"] == block_geometry(w)[2]
+    assert info["windows"] == BLOCK_WINDOWS
 
 
 def _correlation_maps(card, w):
@@ -603,11 +655,12 @@ def test_offline_piv_background_on_the_card(card, tmp_path):
         assert all(np.array_equal(p, q) for p, q in zip(a, b))
 
 
-@pytest.mark.parametrize("mode", ["full", "cpasync"])
+@pytest.mark.parametrize("mode", ["full", "noshuffle", "rowbyrow"])
 def test_anatomy_tool_exact_modes_equal_the_plain_version(card, mode):
-    """``tools/shift_anatomy_cuda.py``: the committed kernel and its
-    ``cp.async`` staging, built from edited copies of the sources, give
-    ``blend_reference``'s windows bit for bit."""
+    """``tools/shift_anatomy_cuda.py``: the committed kernel, its right
+    neighbours loaded instead of shuffled and its rows loaded one ahead,
+    built from edited copies of the sources, give ``blend_reference``'s
+    windows bit for bit."""
     from torchpiv_tpu_torch.kernels import _build
     from torchpiv_tpu_torch.kernels.shift import launch
     from torchpiv_tpu_torch.ops.shifts import blend_reference, shift_operands
@@ -634,6 +687,42 @@ def test_anatomy_tool_exact_modes_equal_the_plain_version(card, mode):
     assert _build.CSRC == csrc
     assert ptxas["registers"] > 0 and ptxas["spill_stores"] == 0
     assert torch.equal(got, blend_reference(ops, w))
+
+
+@pytest.mark.parametrize("mode", ["full", "stages1"])
+def test_def_anatomy_tool_exact_modes_equal_the_plain_version(card, mode):
+    """``tools/def_anatomy_cuda.py``: the committed deformation kernel and
+    its one-buffer staging, built from edited copies of the sources, give
+    ``def_reference``'s windows bit for bit in both interpolations."""
+    from torchpiv_tpu_torch.kernels import _build
+    from torchpiv_tpu_torch.kernels.deform import launch
+    from torchpiv_tpu_torch.ops.deform import def_operands, def_reference
+
+    spec = importlib.util.spec_from_file_location(
+        "def_anatomy_cuda",
+        pathlib.Path(__file__).resolve().parents[1] / "tools" / "def_anatomy_cuda.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    shape, w, o = (160, 288), 32, 16
+    n = ((shape[0] - w) // (w - o) + 1) * ((shape[1] - w) // (w - o) + 1)
+    g = torch.Generator().manual_seed(4)
+    frames = (torch.rand(2, *shape, generator=g) * 255).to(card)
+    maps = [((torch.rand(2, n, generator=g) * 2 - 1) * s).to(card)
+            for s in (24, 24, 0.05, 0.05, 0.05, 0.05)]
+    csrc = _build.CSRC
+    ((copy, ptxas),) = tool.build([mode]).values()
+    try:
+        with tool.base.pointed_at(copy):
+            for interp in ("bilinear", "bicubic"):
+                ops = def_operands(frames, *maps, frame_shape=shape, wind_size=w,
+                                   overlap=o, interp=interp)
+                got = launch(ops, w)
+                torch.cuda.synchronize()
+                assert torch.equal(got, def_reference(ops, w))
+    finally:
+        shutil.rmtree(copy)
+    assert _build.CSRC == csrc
+    assert all(p["registers"] > 0 and p["spill_stores"] == 0 for p in ptxas)
 
 
 def test_tf32_on_is_refused(card, monkeypatch):

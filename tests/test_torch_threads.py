@@ -319,7 +319,8 @@ def test_anatomy_tool_edits_the_committed_sources():
     assert tool.SOURCES == csrc
     committed = {name: (csrc / name).read_text() for name in ("shift_windows.cu", "shift.cuh")}
     assert tool.edited_sources("full") == committed
-    assert set(tool.EDITS) == {"full", "cpasync", "noblend", "loadonly", "storeonly"}
+    assert set(tool.EDITS) == {"full", "noshuffle", "rowbyrow", "noblend", "loadonly",
+                               "storeonly"}
     for mode in tool.EDITS:
         edited = tool.edited_sources(mode)
         changed = {name for name in committed if edited[name] != committed[name]}
@@ -334,8 +335,9 @@ def test_anatomy_tool_edits_the_committed_sources():
         finally:
             shutil.rmtree(copy)
         assert _build.CSRC == csrc and _build.NVCC_FLAGS == flags
-    assert "stage_tile_async" in tool.edited_sources("cpasync")["shift_windows.cu"]
-    assert "stage_tile(" not in tool.edited_sources("storeonly")["shift_windows.cu"]
+    assert "__shfl_sync" not in tool.edited_sources("noshuffle")["shift_windows.cu"]
+    assert "rows_ahead() { return 1; }" in tool.edited_sources("rowbyrow")["shift_windows.cu"]
+    assert "__ldg(p + G * k)" not in tool.edited_sources("storeonly")["shift_windows.cu"]
     with pytest.raises(KeyError):
         tool.edited_sources("norolls")  # a TPU mode with no counterpart
     assert tool.ptxas_summary(

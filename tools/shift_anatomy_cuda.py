@@ -6,7 +6,7 @@ one card: the counterpart of ``make_kernel`` in
     python3 tools/shift_anatomy_cuda.py
 
 Each mode copies ``torchpiv_tpu_torch/kernels/csrc`` to a temporary
-directory, edits the copy of ``shift_windows.cu`` or ``shift.cuh``
+directory, edits the copy of ``shift_windows.cu``
 (``edited_sources``), builds it with the package's own ``kernels/_build.py``
 (``-Xptxas -v`` added; all modes at once) and times ``shift_windows`` at the
 4 MP path's pass-2 shape, the shape ``bench_shift_anatomy.py`` uses: 2048²
@@ -14,24 +14,28 @@ float32 frames, a batch of 4, 32 px windows at 16 px overlap (16129 a
 frame), shifts clamped to S = 16 px, maps uniform in ±3 px from a seed; CUDA
 events over 20 launches.  The package's sources are not touched.
 
-* ``full``: the kernel as committed (``stage_tile``, ``__syncthreads``,
-  ``blend_pixel``, store); must equal ``blend_reference`` and the package's
-  ``shift_windows`` bit for bit.
-* ``cpasync``: the tile staged by 4-byte ``cp.async`` (``stage_tile_async``
-  and ``cp_async_wait`` of ``shift.cuh``); must equal them too: it changes
-  how the bytes arrive, not which.
-* ``noblend``: staging, then the floor corner ``t[0]`` stored.
-* ``loadonly``: staging, then ``t[0] * fy`` stored (the TPU ``loadonly``).
-* ``storeonly``: no staging, ``fy * fx`` stored to every pixel (the TPU
+* ``full``: the kernel as committed (a warp a window: each tile row one
+  coalesced ``__ldg`` a slot, the right neighbour by ``__shfl_sync``, eight
+  rows loaded ahead, the blend, a streaming store); must equal
+  ``blend_reference`` and the package's ``shift_windows`` bit for bit.
+* ``noshuffle``: the right neighbours loaded through L1 (a second
+  ``__ldg`` a slot) instead of shuffled; must equal them too: it changes
+  how the neighbour arrives, not which.
+* ``rowbyrow``: one tile row loaded ahead instead of eight; exact as well.
+* ``noblend``: loads and shuffles, then the shuffled right neighbour stored
+  (no blend).
+* ``loadonly``: loads, then ``t[0] * w11`` stored (the TPU ``loadonly``;
+  the shuffles fall away with their only use).
+* ``storeonly``: no tile loads, ``fx * fy`` stored to every pixel (the TPU
   ``storeonly``).
 
 The last three give wrong output by design.  The TPU modes ``norowroll``,
 ``nolaneroll``, ``norolls``, ``rowfirst``, ``gather`` and ``unroll*`` have
 no counterpart: they take apart the rolls that place a tile that a band DMA
-brought in at (8, 128)-aligned offsets.  The CUDA kernel stages each
-window's clamped tile at its own origin in shared memory, which any thread
-addresses at any offset, so it has no rolls to remove; a gather is how
-every thread reads shared memory anyway, and unrolling is ``nvcc``'s.
+brought in at (8, 128)-aligned offsets.  The CUDA kernel reads each
+window's rows at their own origin, which any lane addresses at any offset,
+so it has no rolls to remove; the neighbour exchange they stand for is the
+shuffle that ``noshuffle`` replaces, and the unrolling is ``rowbyrow``'s.
 
 Prints the card's name and power limit first, then one line a mode: ms per
 launch, the byte bound, and the registers, shared memory and spills that
@@ -65,26 +69,23 @@ REPS = 20
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 PTXAS = ("-Xptxas", "-v")
 
-STAGE = ("  piv::stage_tile(frame + (int64_t)b * Hp * Wp, Hp, Wp,\n"
-         "                  r * step + off + dy[wi], c * step + off + dx[wi], T, tile);\n")
-STAGE_ASYNC = (
-    "  piv::stage_tile_async(frame + (int64_t)b * Hp * Wp, Hp, Wp,\n"
-    "                        r * step + off + dy[wi], c * step + off + dx[wi], T,\n"
-    "                        tile, threadIdx.x, blockDim.x);\n"
-    "  piv::cp_async_wait();\n")
-SYNC = "  __syncthreads();\n"
-STORE = "      dst[i] = piv::blend_pixel(tile + ri * T + (i - ri * w), T, blend);\n"
-BLEND = "  return blend_corners(t[0], t[1], t[T], t[T + 1], b);\n"
+SHUFFLE = "    right[k] = __shfl_sync(kAll, x, (c + 1) & (G - 1), G);\n"
+LOAD = "    v[k] = in_tile ? __ldg(p + G * k) : 0.0f;\n"
+AHEAD = "constexpr int rows_ahead() { return K == 1 ? 8 : 4; }\n"
+BLEND = ("        const float val = piv::blend_corners(top[k], top_right[k], below[u][k],\n"
+         "                                             below_right[k], blend);\n")
 EDITS = {
     "full": {},
-    "cpasync": {"shift_windows.cu": [(STAGE, STAGE_ASYNC)]},
-    "noblend": {"shift.cuh": [(BLEND, "  return t[0];\n")]},
+    "noshuffle": {"shift_windows.cu": [
+        (SHUFFLE, "    right[k] = c + G * k < w ? __ldg(row + c + G * k + 1) : x;\n")]},
+    "rowbyrow": {"shift_windows.cu": [(AHEAD, AHEAD.replace("K == 1 ? 8 : 4", "1"))]},
+    "noblend": {"shift_windows.cu": [(BLEND, "        const float val = top_right[k];\n")]},
     "loadonly": {"shift_windows.cu": [
-        (STORE, "      dst[i] = tile[ri * T + (i - ri * w)] * fy[wi];\n")]},
+        (BLEND, "        const float val = top[k] * blend.w11;\n")]},
     "storeonly": {"shift_windows.cu": [
-        (STAGE + SYNC, ""), (STORE, "      dst[i] = fy[wi] * fx[wi];\n")]},
+        (LOAD, "    v[k] = 0.0f;\n"), (BLEND, "        const float val = blend.w22;\n")]},
 }
-EXACT = ("full", "cpasync")  # modes whose output must equal the plain version's
+EXACT = ("full", "noshuffle", "rowbyrow")  # modes whose output must equal the plain version's
 
 
 def edited_sources(mode: str) -> dict:
@@ -211,7 +212,7 @@ def measure(ops, modes=tuple(EDITS)) -> list:
             ms = cuda_ms(lambda: launch(ops, W))
             launches = shift_windows.launches - before
         shutil.rmtree(copy)
-        dynamic = (W + 1) ** 2 * 4  # the launch asks for the tile in every mode
+        dynamic = 0  # no mode stages the tile in shared memory
         rows.append({"mode": mode, "ms": ms, "bound_ms": bound,
                      "max_abs_err": err, "bit_equal": exact, "launches": launches,
                      "dynamic_shared_bytes": dynamic, **ptxas})

@@ -112,6 +112,22 @@ def function(name: str, symbol: str, argtypes: Sequence):
     return fn
 
 
+DESCRIBE_KEYS = ("registers", "local_bytes", "shared_bytes", "threads", "windows")
+
+
+def describe(name: str, *args: int) -> Dict[str, int]:
+    """What the compiler made of a kernel of ``csrc/<name>.cu``: its C
+    function ``<name>_describe(*args, out)`` fills registers a thread, bytes
+    of local memory a thread (spills and stack), bytes of shared memory a
+    block, threads a block and windows a block of the instance that
+    ``args`` select."""
+    fn = function(name, f"{name}_describe",
+                  [ctypes.c_int] * len(args) + [ctypes.c_void_p])
+    out = (ctypes.c_int * len(DESCRIBE_KEYS))()
+    check_launch(name, fn(*args, out))
+    return dict(zip(DESCRIBE_KEYS, out))
+
+
 def check_launch(name: str, rc: int) -> None:
     """Raise if the launch of ``csrc/<name>.cu`` returned a CUDA error."""
     if rc != 0:

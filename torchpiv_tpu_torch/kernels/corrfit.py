@@ -38,11 +38,7 @@ def describe(name: str, wind_size: int) -> Dict[str, int]:
     thread, bytes of local memory a thread (spills and stack), bytes of
     shared memory a block, threads and windows a block."""
     check_windows(name, wind_size)
-    fn = _build.function(name, f"{name}_describe", [ctypes.c_int, ctypes.c_void_p])
-    out = (ctypes.c_int * 5)()
-    _build.check_launch(name, fn(wind_size, out))
-    keys = ("registers", "local_bytes", "shared_bytes", "threads", "windows")
-    return dict(zip(keys, out))
+    return _build.describe(name, wind_size)
 
 
 def check_windows(name: str, wind_size: int) -> None:

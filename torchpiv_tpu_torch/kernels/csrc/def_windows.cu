@@ -15,7 +15,8 @@
 //             pixel whose ry OR rx is an integer takes the floor corner;
 //   bicubic:  Keys weights (a = -0.5) on the 4x4 neighbours.
 // The plain PyTorch version is `def_reference` in
-// torchpiv_tpu_torch/ops/deform.py.
+// torchpiv_tpu_torch/ops/deform.py; `def_block_steps` there replays this
+// kernel's work split, thread by thread, on the CPU.
 //
 // The TPU kernel sums (wy*wx)*tile over all (2M+2)^2 or (2M+4)^2 static
 // tile shifts because it cannot address per pixel; every term outside the
@@ -23,18 +24,42 @@
 // gathers its own taps from shared memory, in ascending ky then kx, each as
 // (wy*wx)*tile, which is the same float32 sum.
 //
-// Bound on an H100: bytes.  At the pass-2 shape of a 4 MP run (2048^2
-// frame, w = 32, o = 16, S = 16, M = 2: N = 16129 windows, pad S + M + 1)
-// one frame writes N*w*w*4 = 66.1 MB and reads the 2086^2*4 = 17.4 MB
-// padded frame plus 8 maps of N*4 bytes: about 25 us at 3.35 TB/s.  The
-// bilinear sample is about 40 flops a pixel, the bicubic about 150 (2.5
-// GFLOP a frame, 37 us at the f32 rate): bicubic is bound by operations.
+// Bound on an H100: bytes for bilinear, operations for bicubic.  At the
+// pass-2 shape of a 4 MP run (2048^2 frame, w = 32, o = 16, S = 16, M = 2:
+// N = 16129 windows, pad S + M + 1) one frame writes N*w*w*4 = 66.1 MB and
+// reads the 2086^2*4 = 17.4 MB padded frame plus 8 maps of N*4 bytes: about
+// 25 us at 3.35 TB/s.  The bilinear sample is about 40 flops a pixel, the
+// bicubic about 150 (2.5 GFLOP a frame, 37 us at the f32 rate).  The
+// rounding rule below forbids FMA contraction, and the card's 67 TFLOP/s
+// f32 rate counts an FMA as two operations, so under it the card issues at
+// most about 33.5 T of these instructions a second: the bicubic batch of 4
+// needs about 0.31 ms for its arithmetic alone.
 //
-// What the design does about the bound: one block per window stages its
-// clamped tile in shared memory (37^2 floats at w = 32, up to 129^2 = 66.6
-// KB, above 48 KB through the dynamic shared-memory attribute), so device
-// memory is read about once per covering window (the 50 MB L2 holds the
-// frame) and the output is written once with coalesced stores.
+// What the design does about the bound.  The taps are gathered at a
+// per-pixel floor(r), so the tile stays in shared memory; what the design
+// cuts is the instructions around it, which an earlier design (one block a
+// window, an integer division per staged element and per pixel, both
+// residuals recomputed in full per pixel, two data-dependent branches per
+// Keys weight) spent more time on than the bytes take:
+//
+// * a block walks kWindows windows of one grid row through a ring of
+//   kStages tile buffers (rows at an odd pitch, against bank conflicts):
+//   each window's clamped tile is staged by 4-byte `cp.async` (thread t
+//   copies elements t, t + blockDim, ... in row-major order, all lanes
+//   busy) while the window before it is computed (a third buffer bought
+//   nothing; tools/def_anatomy_cuda.py splits the time into staging,
+//   sampling and stores);
+// * thread t computes the column quad q = t % Q (Q = ceil(w / 4)) of the
+//   pixel rows t / Q, t / Q + R, ... (R = rows a pass): four divisions a
+//   thread (these two and the staging walk's start), none a pixel or a
+//   staged element;
+// * the row-invariant part of each residual, by + gyi*ioff, is computed
+//   once a pixel row and thread, the column part gyj*joff once a window and
+//   column: the same operations in the same order as the full residual;
+// * each Keys weight evaluates the piece that the tap's position fixes
+//   (`keys_tap`), without a branch or a select, to the same bits;
+// * a row's four pixels go out as one 16-byte store where w % 4 == 0
+//   (streaming, so the windows do not evict the frame from L2).
 //
 // Numerics: ry decides floor(ry) and ry == floor(ry), so a contracted
 // multiply-add would move pixels between cells.  The residual, the weights
@@ -42,122 +67,231 @@
 // __fsub_rn) in the TPU kernel's order, and the result matches the plain
 // PyTorch version to the last bit.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "shift.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;  // threads a block, at most
+constexpr int kWindows = 8;    // windows of a grid row a block walks
+constexpr int kStages = 2;     // tile buffers: the next window arrives while one is computed
 
-// Keys cubic-convolution weight, a = -0.5, in the TPU kernel's term order.
-__device__ __forceinline__ float keys(float d) {
-  const float ad = fabsf(d);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Keys cubic-convolution weight, a = -0.5, in the TPU kernel's term order:
+//   |d| <= 1:     (1.5|d|^3 - 2.5|d|^2) + 1              (the inner piece)
+//   1 < |d| < 2:  ((-0.5|d|^3 - -2.5|d|^2) + -4|d|) - -2  (the outer piece)
+//   otherwise 0.
+// Tap k of a pixel sits at distance d = (r + 1) - (floor(r) + k), and with
+// r + 1 rounded and the subtraction exact, |d| lies in [1, 2] for taps 0
+// and 3 and in [0, 1] for taps 1 and 2.  So the tap's position fixes the
+// piece the branch would choose, and no weight needs a branch or a select:
+// taps 1 and 2 take the inner piece, taps 0 and 3 the outer one, which at
+// |d| = 1 and |d| = 2 gives +0 as the inner piece and the zero branch do.
+// Every weight is the branchy version's to the last bit.
+__device__ __forceinline__ float keys_inner(float ad) {
   const float ad2 = __fmul_rn(ad, ad);
   const float ad3 = __fmul_rn(ad2, ad);
-  if (ad <= 1.0f) {
-    const float r = __fsub_rn(__fmul_rn(1.5f, ad3), __fmul_rn(2.5f, ad2));
-    return __fadd_rn(r, 1.0f);
-  }
-  if (ad < 2.0f) {
-    float r = __fsub_rn(__fmul_rn(-0.5f, ad3), __fmul_rn(-2.5f, ad2));
-    r = __fadd_rn(r, __fmul_rn(-4.0f, ad));
-    return __fsub_rn(r, -2.0f);
-  }
-  return 0.0f;
+  return __fadd_rn(__fsub_rn(__fmul_rn(1.5f, ad3), __fmul_rn(2.5f, ad2)), 1.0f);
+}
+
+__device__ __forceinline__ float keys_outer(float ad) {
+  const float ad2 = __fmul_rn(ad, ad);
+  const float ad3 = __fmul_rn(ad2, ad);
+  float r = __fsub_rn(__fmul_rn(-0.5f, ad3), __fmul_rn(-2.5f, ad2));
+  r = __fadd_rn(r, __fmul_rn(-4.0f, ad));
+  return __fsub_rn(r, -2.0f);
+}
+
+// The Keys weight of tap k at distance d.
+__device__ __forceinline__ float keys_tap(float d, int k) {
+  return k == 1 || k == 2 ? keys_inner(fabsf(d)) : keys_outer(fabsf(d));
 }
 
 __device__ __forceinline__ float hat(float r, float k) {
   return fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(r, k))));
 }
 
-__device__ __forceinline__ float residual(float base, float gi, float ioff,
-                                          float gj, float joff, float hi) {
-  float r = __fadd_rn(base, __fmul_rn(gi, ioff));
-  r = __fadd_rn(r, __fmul_rn(gj, joff));
-  return fminf(fmaxf(r, 0.0f), hi);
+// The pixel at (pi, pj) of the window, from its residuals (ry, rx) and the
+// window's tile, whose rows lie TP floats apart in shared memory.
+template <bool kCubic>
+__device__ __forceinline__ float sample(const float* tile, int TP, int pi,
+                                        int pj, float ry, float rx) {
+  const float fry = floorf(ry);
+  const float frx = floorf(rx);
+  const float* t = tile + (pi + (int)fry) * TP + (pj + (int)frx);
+  float acc = 0.0f;
+  if (kCubic) {
+    float wy[4], wx[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // tap k sits at tile row floor(ry) + k: distance (ry + 1) - ky
+      wy[k] = keys_tap(__fsub_rn(__fadd_rn(ry, 1.0f), __fadd_rn(fry, (float)k)), k);
+      wx[k] = keys_tap(__fsub_rn(__fadd_rn(rx, 1.0f), __fadd_rn(frx, (float)k)), k);
+    }
+#pragma unroll
+    for (int ky = 0; ky < 4; ++ky)
+#pragma unroll
+      for (int kx = 0; kx < 4; ++kx)
+        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(wy[ky], wx[kx]),
+                                       t[ky * TP + kx]));
+  } else {
+    // integer sample coordinate in EITHER axis -> floor corner
+    if (ry == fry || rx == frx) {
+      ry = fry;
+      rx = frx;
+    }
+    float wy[2], wx[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      wy[k] = hat(ry, __fadd_rn(fry, (float)k));
+      wx[k] = hat(rx, __fadd_rn(frx, (float)k));
+    }
+#pragma unroll
+    for (int ky = 0; ky < 2; ++ky)
+#pragma unroll
+      for (int kx = 0; kx < 2; ++kx)
+        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(wy[ky], wx[kx]),
+                                       t[ky * TP + kx]));
+  }
+  return acc;
 }
 
+// Threads a block and pixel rows a pass for window size w: Q = ceil(w / 4)
+// column quads a row, R = min(w, kThreads / Q) rows a pass (w32: two rows a
+// thread), and the block rounded up to whole warps.
+struct Geometry {
+  int Q, R, threads;
+};
+
+Geometry geometry_for(int w) {
+  Geometry g;
+  g.Q = (w + 3) / 4;
+  g.R = w < kThreads / g.Q ? w : kThreads / g.Q;
+  const int threads = (g.Q * g.R + 31) / 32 * 32;
+  g.threads = threads < 32 ? 32 : threads;
+  return g;
+}
+
+int tile_side(int w, int M, bool cubic) { return w + 2 * M + (cubic ? 4 : 1); }
+
+// The tile's row pitch in shared memory: T rounded up to an odd number, so
+// that the rows a warp reads start in banks of different residues mod 4
+// (w32 bicubic: T = 40 put four rows' taps in the same eight banks).
+__host__ __device__ int tile_pitch(int T) { return T | 1; }
+
 template <bool kCubic>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 6)
 def_windows_kernel(const float* __restrict__ frame,
                    const int* __restrict__ dy, const int* __restrict__ dx,
                    const float* __restrict__ fy, const float* __restrict__ fx,
                    const float* __restrict__ gyi, const float* __restrict__ gyj,
                    const float* __restrict__ gxi, const float* __restrict__ gxj,
                    float* __restrict__ out,
-                   int Hp, int Wp, int n_cols, int n_win,
-                   int w, int step, int off, int M) {
-  extern __shared__ float tile[];
-  const int n = blockIdx.x;  // window, row-major over the grid
-  const int b = blockIdx.y;  // frame of the batch
-  const int64_t wi = (int64_t)b * n_win + n;
+                   int Hp, int Wp, int n_rows, int n_cols,
+                   int w, int step, int off, int M, int Q, int R) {
+  extern __shared__ float smem[];
   const int T = w + 2 * M + (kCubic ? 4 : 1);
+  const int TP = tile_pitch(T);
   const int base = M + (kCubic ? 1 : 0);
-  const int r = n / n_cols;
-  const int c = n - r * n_cols;
-
-  int ty = r * step + off + dy[wi] - base;
-  int tx = c * step + off + dx[wi] - base;
-  ty = min(max(ty, 0), Hp - T);
-  tx = min(max(tx, 0), Wp - T);
-  const float* src = frame + (int64_t)b * Hp * Wp + (int64_t)ty * Wp + tx;
-  for (int i = threadIdx.x; i < T * T; i += blockDim.x) {
-    const int ri = i / T;
-    tile[i] = src[(int64_t)ri * Wp + (i - ri * T)];
-  }
-  __syncthreads();
-
-  const float by = __fadd_rn((float)M, fy[wi]);
-  const float bx = __fadd_rn((float)M, fx[wi]);
-  const float gyi_ = gyi[wi], gyj_ = gyj[wi], gxi_ = gxi[wi], gxj_ = gxj[wi];
+  const int r = blockIdx.y;  // grid row of the block's windows
+  const int b = blockIdx.z;  // frame of the batch
+  const int c0 = blockIdx.x * kWindows;
+  const int n_mine = min(kWindows, n_cols - c0);
+  const int64_t w0 = ((int64_t)b * n_rows + r) * n_cols + c0;  // first window
+  const float* fb = frame + (int64_t)b * Hp * Wp;
+  const int q = threadIdx.x % Q;   // the thread's column quad
+  const int p0 = threadIdx.x / Q;  // its first pixel row; p0 >= R: idle
+  // the staging walk: tile element e = threadIdx.x + m * blockDim.x, row
+  // major, its row and column stepped on from the thread's first ones
+  const int row_step = blockDim.x / T;
+  const int col_step = blockDim.x - row_step * T;
+  const int row0 = threadIdx.x / T;
+  const int col0 = threadIdx.x - row0 * T;
   const float half = (float)(w - 1) * 0.5f;  // exact: a half-integer
   const float hi = __fsub_rn((float)(2 * M + 1), 1e-3f);  // floor(r) <= 2M
-  float* dst = out + wi * w * w;
-  for (int i = threadIdx.x; i < w * w; i += blockDim.x) {
-    const int pi = i / w;
-    const int pj = i - pi * w;
-    const float ioff = __fsub_rn((float)pi, half);
-    const float joff = __fsub_rn((float)pj, half);
-    float ry = residual(by, gyi_, ioff, gyj_, joff, hi);
-    float rx = residual(bx, gxi_, ioff, gxj_, joff, hi);
-    const float fry = floorf(ry);
-    const float frx = floorf(rx);
-    const float* t = tile + (pi + (int)fry) * T + (pj + (int)frx);
-    float acc = 0.0f;
-    if (kCubic) {
-      float wy[4], wx[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        // tap k sits at tile row floor(ry) + k: distance (ry + 1) - ky
-        wy[k] = keys(__fsub_rn(__fadd_rn(ry, 1.0f), __fadd_rn(fry, (float)k)));
-        wx[k] = keys(__fsub_rn(__fadd_rn(rx, 1.0f), __fadd_rn(frx, (float)k)));
+  const bool vec = (w & 3) == 0;
+
+  // window k of the block's run: its clamped tile into buffer k % kStages
+  auto stage = [&](int k) {
+    float* tile = smem + (k % kStages) * T * TP;
+    const int64_t wi = w0 + k;
+    const int ty = min(max(r * step + off + dy[wi] - base, 0), Hp - T);
+    const int tx = min(max((c0 + k) * step + off + dx[wi] - base, 0), Wp - T);
+    const float* src = fb + (int64_t)ty * Wp + tx;
+    int i = row0, j = col0;
+    for (int e = threadIdx.x; e < T * T; e += blockDim.x) {
+      piv::cp_async4(tile + i * TP + j, src + (int64_t)i * Wp + j);
+      i += row_step;
+      j += col_step;
+      if (j >= T) {
+        j -= T;
+        ++i;
       }
-#pragma unroll
-      for (int ky = 0; ky < 4; ++ky)
-#pragma unroll
-        for (int kx = 0; kx < 4; ++kx)
-          acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(wy[ky], wx[kx]),
-                                         t[ky * T + kx]));
-    } else {
-      // integer sample coordinate in EITHER axis -> floor corner
-      if (ry == fry || rx == frx) {
-        ry = fry;
-        rx = frx;
-      }
-      float wy[2], wx[2];
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        wy[k] = hat(ry, __fadd_rn(fry, (float)k));
-        wx[k] = hat(rx, __fadd_rn(frx, (float)k));
-      }
-#pragma unroll
-      for (int ky = 0; ky < 2; ++ky)
-#pragma unroll
-        for (int kx = 0; kx < 2; ++kx)
-          acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(wy[ky], wx[kx]),
-                                         t[ky * T + kx]));
     }
-    dst[i] = acc;
+  };
+
+  // one group of copies a window, empty past the run's end, so that
+  // waiting for all but the last kStages - 1 groups waits for window k
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (k < n_mine) stage(k);
+    cp_async_commit();
+  }
+  for (int k = 0; k < n_mine; ++k) {
+    if (k + kStages - 1 < n_mine) stage(k + kStages - 1);  // into k - 1's buffer
+    cp_async_commit();
+    cp_async_wait_group<kStages - 1>();
+    __syncthreads();
+    if (p0 < R) {
+      const float* tile = smem + (k % kStages) * T * TP;
+      const int64_t wi = w0 + k;
+      const float by = __fadd_rn((float)M, fy[wi]);
+      const float bx = __fadd_rn((float)M, fx[wi]);
+      const float gyi_ = gyi[wi], gxi_ = gxi[wi];
+      const float gyj_ = gyj[wi], gxj_ = gxj[wi];
+      // the column parts of the residuals: gyj*joff and gxj*joff
+      float col_y[4], col_x[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float joff = __fsub_rn((float)(4 * q + jj), half);
+        col_y[jj] = __fmul_rn(gyj_, joff);
+        col_x[jj] = __fmul_rn(gxj_, joff);
+      }
+      float* dst = out + wi * w * w + 4 * q;
+      for (int pi = p0; pi < w; pi += R) {
+        const float ioff = __fsub_rn((float)pi, half);
+        // the row-invariant parts: by + gyi*ioff and bx + gxi*ioff
+        const float row_y = __fadd_rn(by, __fmul_rn(gyi_, ioff));
+        const float row_x = __fadd_rn(bx, __fmul_rn(gxi_, ioff));
+        float px[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int pj = 4 * q + jj;
+          px[jj] = 0.0f;
+          if (pj < w) {
+            const float ry = fminf(fmaxf(__fadd_rn(row_y, col_y[jj]), 0.0f), hi);
+            const float rx = fminf(fmaxf(__fadd_rn(row_x, col_x[jj]), 0.0f), hi);
+            px[jj] = sample<kCubic>(tile, TP, pi, pj, ry, rx);
+          }
+        }
+        if (vec) {
+          __stcs(reinterpret_cast<float4*>(dst + pi * w),
+                 make_float4(px[0], px[1], px[2], px[3]));
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            if (4 * q + jj < w) __stcs(dst + pi * w + jj, px[jj]);
+        }
+      }
+    }
+    __syncthreads();  // buffer k % kStages is staged again for window k + kStages
   }
 }
 
@@ -166,29 +300,50 @@ def_windows_kernel(const float* __restrict__ frame,
 extern "C" {
 
 // frame: [B, Hp, Wp] f32; dy, dx: [B, N] i32; fy, fx and the four gradient
-// maps: [B, N] f32; out: [B, N, w, w] f32 with N = n_rows * n_cols.
-// Launches on `stream` and returns cudaGetLastError() of the launch (0 on
-// success).
+// maps: [B, N] f32; out: [B, N, w, w] f32 with N = n_rows * n_cols.  The
+// tile side w + 2M + (4 | 1) is at most 129.  Launches on `stream` and
+// returns cudaGetLastError() of the launch (0 on success).
 int def_windows_f32(const float* frame, const int* dy, const int* dx,
                     const float* fy, const float* fx,
                     const float* gyi, const float* gyj,
                     const float* gxi, const float* gxj, float* out,
                     int B, int Hp, int Wp, int n_rows, int n_cols,
                     int w, int step, int off, int M, int cubic, void* stream) {
-  const int T = w + 2 * M + (cubic ? 4 : 1);
-  const size_t smem = (size_t)T * T * sizeof(float);
+  const int T = tile_side(w, M, cubic);
+  if (w < 1 || M < 1 || T > 129) return (int)cudaErrorInvalidValue;
+  const size_t smem = kStages * (size_t)T * tile_pitch(T) * sizeof(float);
   auto kernel = cubic ? def_windows_kernel<true> : def_windows_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int n_win = n_rows * n_cols;
-  dim3 grid(n_win, B);
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const Geometry g = geometry_for(w);
+  dim3 grid((n_cols + kWindows - 1) / kWindows, n_rows, B);
+  kernel<<<grid, g.threads, smem, (cudaStream_t)stream>>>(
       frame, dy, dx, fy, fx, gyi, gyj, gxi, gxj, out,
-      Hp, Wp, n_cols, n_win, w, step, off, M);
+      Hp, Wp, n_rows, n_cols, w, step, off, M, g.Q, g.R);
   return (int)cudaGetLastError();
+}
+
+// out[0..4]: registers a thread, bytes of local memory a thread (spills and
+// stack), bytes of shared memory a block, threads a block, windows a block
+// of the launch for window size w, margin M and `cubic`.  Returns a CUDA
+// error code, 0 on success.
+int def_windows_describe(int w, int M, int cubic, int* out) {
+  const int T = tile_side(w, M, cubic);
+  if (w < 1 || M < 1 || T > 129) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(
+      &attr, cubic ? def_windows_kernel<true> : def_windows_kernel<false>);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)(attr.sharedSizeBytes +
+                 kStages * (size_t)T * tile_pitch(T) * sizeof(float));
+  out[3] = geometry_for(w).threads;
+  out[4] = kWindows;
+  return 0;
 }
 
 const char* def_windows_error_string(int code) {

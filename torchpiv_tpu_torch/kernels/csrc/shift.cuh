@@ -1,10 +1,11 @@
 // The bilinear window shift of one window by one block: the clamped
 // (w+1)^2 tile staged in shared memory, and the blend of its four corner
-// slices with per-window scalar weights.  Shared by shift_windows.cu (the
-// windows go to device memory), fused_pass.cu (they stay in the block) and
+// slices with per-window scalar weights.  The staging is fused_pass.cu's
+// (the windows stay in the block); the blend is shared by it,
+// shift_windows.cu (which keeps a window's rows in a warp's registers) and
 // the shift variants (shift_windows_{bf16,phases,lanephases,mxu}.cu, which
-// stage the tile in other ways and blend with the same code), so all
-// produce the same windows bit for bit.
+// stage the tile in other ways), so all produce the same windows bit for
+// bit.
 //
 // Numerics: the weights and the blend use explicitly rounded
 // multiplications and additions (__fmul_rn / __fadd_rn / __fsub_rn), in
@@ -19,20 +20,6 @@
 #include <stdint.h>
 
 namespace piv {
-
-// Copy the T x T tile at (ty, tx), clamped into the Hp x Wp frame, to
-// `tile`.  Called by every thread of the block; the caller synchronises.
-__device__ __forceinline__ void stage_tile(const float* __restrict__ frame,
-                                           int Hp, int Wp, int ty, int tx,
-                                           int T, float* tile) {
-  ty = min(max(ty, 0), Hp - T);
-  tx = min(max(tx, 0), Wp - T);
-  const float* src = frame + (int64_t)ty * Wp + tx;
-  for (int i = threadIdx.x; i < T * T; i += blockDim.x) {
-    const int ri = i / T;
-    tile[i] = src[(int64_t)ri * Wp + (i - ri * T)];
-  }
-}
 
 // The four corner weights of a window's fractional shift (fy, fx).
 struct Blend {
@@ -103,7 +90,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// `stage_tile` by asynchronous copies, by every thread of a group of `size`
+// Copy the T x T tile at (ty, tx), clamped into the Hp x Wp frame, to
+// `tile` by asynchronous copies, by every thread of a group of `size`
 // threads, each with its `rank`: all of a thread's copies are in flight at
 // once and pass through no register.  The caller waits (`cp_async_wait`)
 // and synchronises the group.

@@ -8,13 +8,31 @@ the current stream or raises.  ``def_windows.launches`` counts launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..config import MAX_DEF_TILE, def_tile
 from ..ops.deform import DefOperands, def_operands, def_reference
 from . import _build
+
+
+def describe(wind_size: int, margin: int, interp: str) -> Dict[str, int]:
+    """What the compiler made of the kernel's instance for ``interp`` and
+    the launch for ``wind_size`` and ``margin`` (``_build.describe``):
+    registers, local bytes, shared bytes, threads and windows a block."""
+    check_tile(wind_size, margin, interp)
+    return _build.describe("def_windows", wind_size, margin,
+                           int(interp == "bicubic"))
+
+
+def check_tile(wind_size: int, margin: int, interp: str) -> None:
+    if interp not in ("bilinear", "bicubic"):
+        raise ValueError(f"unknown interp {interp!r}")
+    T = def_tile(wind_size, margin, interp)
+    if T > MAX_DEF_TILE:
+        raise ValueError(f"def_windows: wind_size={wind_size} margin={margin} "
+                         f"interp={interp!r} needs a {T} px tile > {MAX_DEF_TILE}")
 
 
 def launch(ops: DefOperands, wind_size: int) -> torch.Tensor:
@@ -63,12 +81,7 @@ def def_windows(
     offset applied at a pixel is ``vel + d/dx * joff + d/dy * ioff`` with
     ``ioff, joff`` its signed offsets from the window centre; the residual
     beyond the centre's integer shift saturates at the margin."""
-    if interp not in ("bilinear", "bicubic"):
-        raise ValueError(f"unknown interp {interp!r}")
-    T = def_tile(wind_size, margin, interp)
-    if T > MAX_DEF_TILE:
-        raise ValueError(f"def_windows: wind_size={wind_size} margin={margin} "
-                         f"interp={interp!r} needs a {T} px tile > {MAX_DEF_TILE}")
+    check_tile(wind_size, margin, interp)
     if out_dtype != torch.float32:
         raise ValueError(f"def_windows stores float32 only, not {out_dtype}")
     if frame.device.type not in ("cpu", "cuda"):

@@ -23,7 +23,7 @@ The port's engine does not use it: its own kernels read ``[N, w, w]``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,8 +35,19 @@ from ..ops.shifts import (BF16_VARIANTS, VARIANTS, ShiftOperands,
 from . import _build
 
 # the limits of the TPU kernels, kept so that both engines take the same
-# configurations; (w+1)^2 f32 = 66 KB of shared memory at w = 128
+# configurations; the bilinear kernel serves up to four columns a lane
+# (w = 128), the bicubic one stages (w+4)^2 f32 = 66 KB at w = 125
 MAX_WIND = {"bilinear": MAX_SHIFT_WIND, "bicubic": MAX_BICUBIC_WIND}
+
+
+def describe(wind_size: int) -> Dict[str, int]:
+    """What the compiler made of the bilinear kernel's instance for
+    ``wind_size`` (``_build.describe``): registers, local bytes, shared
+    bytes, threads and windows a block."""
+    if not 1 <= wind_size <= MAX_SHIFT_WIND:
+        raise ValueError(f"shift_windows: wind_size={wind_size} not in "
+                         f"1..{MAX_SHIFT_WIND}")
+    return _build.describe("shift_windows", wind_size)
 
 
 def launch(ops: ShiftOperands, wind_size: int, interp: str = "bilinear",

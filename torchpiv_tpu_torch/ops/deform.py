@@ -185,6 +185,168 @@ def def_reference(ops: DefOperands, wind_size: int) -> torch.Tensor:
     return acc
 
 
+THREADS = 128  # threads a block of csrc/def_windows.cu, at most
+BLOCK_WINDOWS = 8  # windows of a grid row a block walks
+STAGES = 2  # its tile buffers
+
+
+def block_geometry(w: int) -> Tuple[int, int, int]:
+    """``(Q, R, threads)`` of ``csrc/def_windows.cu`` for window size ``w``:
+    column quads a pixel row, pixel rows a pass, threads a block (whole
+    warps)."""
+    Q = -(-w // 4)
+    R = min(w, THREADS // Q)
+    return Q, R, max(32, -(-(Q * R) // 32) * 32)
+
+
+def keys_tap(d: torch.Tensor, k: int) -> torch.Tensor:
+    """``keys_weight`` of tap ``k`` at distance ``d = (r + 1) - (floor(r) +
+    k)`` as the kernel evaluates it: the piece the tap's position fixes, the
+    inner one ``(1.5|d|^3 - 2.5|d|^2) + 1`` for taps 1 and 2 (``|d| <= 1``),
+    the outer one ``((-0.5|d|^3 - -2.5|d|^2) + -4|d|) - -2`` for taps 0 and
+    3 (``1 <= |d| <= 2``, where it gives +0 at both ends)."""
+    ad = d.abs()
+    ad2 = ad * ad
+    ad3 = ad2 * ad
+    if k in (1, 2):
+        return (1.5 * ad3 - 2.5 * ad2) + 1.0
+    return ((-0.5 * ad3 - (-2.5) * ad2) + (-4.0) * ad) - (-2.0)
+
+
+def def_block_steps(ops: DefOperands, wind_size: int) -> torch.Tensor:
+    """The deformed windows by the steps of ``csrc/def_windows.cu``, with
+    tensor ops: block ``(bx, r, b)`` walks windows ``8 bx .. 8 bx + 7`` of
+    grid row ``r``; window ``k``'s clamped tile is staged into buffer
+    ``k % STAGES`` (thread ``t`` copies elements ``t + m * threads``, its
+    row and column stepped with a carry) before window ``k - STAGES + 1`` is
+    computed
+    from its own buffer; thread ``t`` computes column quad ``t % Q`` of
+    pixel rows ``t // Q + m R`` from the row part ``by + gyi*ioff`` (once a
+    row) plus the column part ``gyj*joff`` (once a window), gathers its
+    taps from the buffer and weights them with ``keys_tap`` or the hat.  Scattered to ``[B, N, w,
+    w]``; raises unless every tile element is staged once and every output
+    element written once.  A model of the kernel's index arithmetic for the
+    CPU tests: no path of the package calls it."""
+    w, M = wind_size, ops.margin
+    T = w + 2 * M + (4 if ops.cubic else 1)
+    base = M + (1 if ops.cubic else 0)
+    B, Hp, Wp = ops.frame.shape
+    n_rows, n_cols = ops.n_rows, ops.n_cols
+    Q, R, threads = block_geometry(w)
+    TP = T | 1  # the buffer's row pitch: odd, against bank conflicts
+    n_bx = -(-n_cols // BLOCK_WINDOWS)
+    flat = ops.frame.reshape(B, -1)
+    bshape = (B, n_rows, n_bx)
+    b_idx = torch.arange(B).reshape(B, 1, 1)
+    r = torch.arange(n_rows).reshape(1, n_rows, 1)
+    bx = torch.arange(n_bx).reshape(1, 1, n_bx)
+
+    # the staging walk: thread t copies tile elements e = t + m * threads,
+    # its row and column stepped on by (threads // T, threads % T) with a
+    # carry, not divided out of e
+    rows, cols, dst = [], [], []
+    i, j = torch.arange(threads) // T, torch.arange(threads) % T
+    row_step, col_step = threads // T, threads % T
+    for m in range(-(-T * T // threads)):
+        e = torch.arange(threads) + m * threads
+        live = e < T * T
+        rows.append(i[live])
+        cols.append(j[live])
+        dst.append(e[live])
+        i, j = i + row_step, j + col_step
+        i, j = torch.where(j >= T, i + 1, i), torch.where(j >= T, j - T, j)
+    rows, cols, walked = torch.cat(rows), torch.cat(cols), torch.cat(dst)
+    staged = torch.bincount(walked, minlength=T * T)
+    if not (bool((staged == 1).all()) and torch.equal(rows * T + cols, walked)):
+        raise RuntimeError("def_block_steps: the staging misses, repeats or "
+                           "misplaces tile elements")
+    elem = rows * Wp + cols  # frame offsets
+    dst_elem = rows * TP + cols  # buffer offsets, rows TP apart
+
+    def window(k):  # flat window index [B, n_rows, n_bx] of window k, and live
+        c = bx * BLOCK_WINDOWS + k
+        live = (c < n_cols).expand(bshape)
+        wi = (b_idx * n_rows + r) * n_cols + c.clamp(max=n_cols - 1)
+        return wi.expand(bshape), c.clamp(max=n_cols - 1), live
+
+    def stage(k, buffers):
+        wi, c, _ = window(k)
+        dy, dx = ops.dy.reshape(-1)[wi], ops.dx.reshape(-1)[wi]
+        ty = (r * ops.step + ops.off + dy - base).clamp(0, Hp - T)
+        tx = (c * ops.step + ops.off + dx - base).clamp(0, Wp - T)
+        idx = (ty * Wp + tx)[..., None] + elem
+        vals = torch.gather(flat, 1, idx.reshape(B, -1)).reshape(*bshape, -1)
+        buffers[..., k % STAGES, dst_elem] = vals
+
+    # the thread map: quad q, first row p0, rows p0 + m R
+    tid = torch.arange(threads)
+    q, p0 = tid % Q, tid // Q
+    m = torch.arange(-(-w // R))
+    pi = p0[:, None] + R * m[None, :]  # [threads, m]
+    pj = 4 * q[:, None] + torch.arange(4)[None, :]  # [threads, 4]
+    active = ((p0 < R)[:, None, None] & (pi < w)[:, :, None]
+              & (pj < w)[:, None, :])  # [threads, m, 4]
+    half = (w - 1) / 2.0
+    ioff = pi.to(torch.float32) - half
+    joff = pj.to(torch.float32) - half
+    hi = (torch.tensor(2 * M + 1, dtype=torch.float32) - 1e-3).item()
+
+    out = torch.zeros(B * n_rows * n_cols * w * w)
+    writes = torch.zeros(out.numel(), dtype=torch.int64)
+    buffers = torch.zeros(*bshape, STAGES, T * TP)
+    for k in range(STAGES - 1):
+        stage(k, buffers)
+    e3 = (Ellipsis, None, None, None)
+    for k in range(BLOCK_WINDOWS):
+        if k + STAGES - 1 < BLOCK_WINDOWS:
+            stage(k + STAGES - 1, buffers)  # into window k - 1's buffer
+        tile = buffers[..., k % STAGES, :]
+        wi, _, live = window(k)
+
+        def at(mp):
+            return mp.reshape(-1)[wi]
+
+        by = M + at(ops.fy)
+        bx_ = M + at(ops.fx)
+        col_y = at(ops.gyj)[..., None, None] * joff  # [.., threads, 4]
+        col_x = at(ops.gxj)[..., None, None] * joff
+        row_y = by[..., None, None] + at(ops.gyi)[..., None, None] * ioff
+        row_x = bx_[..., None, None] + at(ops.gxi)[..., None, None] * ioff
+        ry = (row_y[..., None] + col_y[..., :, None, :]).clamp(0.0, hi)
+        rx = (row_x[..., None] + col_x[..., :, None, :]).clamp(0.0, hi)
+        fry, frx = torch.floor(ry), torch.floor(rx)
+        if not ops.cubic:
+            int_cell = (ry == fry) | (rx == frx)
+            ry = torch.where(int_cell, fry, ry)
+            rx = torch.where(int_cell, frx, rx)
+        ok = active & live[e3]
+        corner = ((pi[:, :, None] + fry.to(torch.int64)) * TP
+                  + pj[:, None, :] + frx.to(torch.int64))
+        corner = torch.where(ok, corner, torch.zeros((), dtype=torch.int64))
+        n_tap = 4 if ops.cubic else 2
+        if ops.cubic:
+            wy = [keys_tap((ry + 1.0) - (fry + a), a) for a in range(n_tap)]
+            wx = [keys_tap((rx + 1.0) - (frx + a), a) for a in range(n_tap)]
+        else:
+            wy = [torch.clamp(1.0 - (ry - (fry + a)).abs(), min=0.0) for a in range(2)]
+            wx = [torch.clamp(1.0 - (rx - (frx + a)).abs(), min=0.0) for a in range(2)]
+        acc = torch.zeros_like(ry)
+        flat_tile = tile.reshape(*bshape, -1)
+        for a in range(n_tap):
+            for c in range(n_tap):
+                idx = corner + a * TP + c
+                val = torch.gather(flat_tile, 3, idx.reshape(*bshape, -1)).reshape(idx.shape)
+                acc = acc + (wy[a] * wx[c]) * val
+        dst = (wi[e3] * w + pi[:, :, None]) * w + pj[:, None, :]
+        dst = dst.expand(ok.shape)[ok]
+        out[dst] = acc[ok]
+        writes += torch.bincount(dst, minlength=writes.numel())
+    if not bool((writes == 1).all()):
+        raise RuntimeError("def_block_steps: an output element is written "
+                           f"{int(writes.min())}..{int(writes.max())} times")
+    return out.reshape(B, n_rows * n_cols, w, w)
+
+
 def def_windows_reference(
     frame: torch.Tensor,
     vel_x: torch.Tensor,

@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .geometry import get_field_shape
+from .packing import packed_width
 
 
 def flat_wrap_pad(frame: torch.Tensor, P: int) -> torch.Tensor:
@@ -186,6 +187,110 @@ def blend_reference(ops: ShiftOperands, wind_size: int) -> torch.Tensor:
     )
     # integer shift in EITHER axis -> floor corner (reference fallback)
     return torch.where((fy == 0.0) | (fx == 0.0), f11, blend)
+
+
+WARPS = 8  # warps a block of csrc/shift_windows.cu
+
+
+def warp_lanes(w: int) -> Tuple[int, int]:
+    """``(G, K)`` of ``csrc/shift_windows.cu`` for window size ``w``: a
+    window a group of ``G`` lanes (a power of two; ``32 // G`` windows a
+    warp), ``K`` tile columns a lane."""
+    if w > 32:
+        return 32, -(-w // 32)
+    return 1 << max(w - 1, 0).bit_length(), 1
+
+
+def warp_window_steps(ops: ShiftOperands, wind_size: int,
+                      packed: bool = False) -> torch.Tensor:
+    """The bilinear windows by the steps of ``csrc/shift_windows.cu``, with
+    tensor ops: block ``(bx, r, b)`` of ``WARPS`` warps; lane ``l`` of a
+    warp serves the window in grid column ``((bx * WARPS + warp) << (5 -
+    lg)) + (l >> lg)`` of row ``r`` (``G = 1 << lg``) as lane ``c = l & (G -
+    1)`` of its group; slot ``k`` of lane ``c`` holds tile column ``c + G *
+    k`` where the tile has it; the warp walks the tile rows, each loaded
+    once and carried to the next step as the row above; a slot's right
+    neighbour comes from the group's lane ``(c + 1) & (G - 1)``, whose
+    lane 0 offers its next slot.  Blended in ``blend_corners``' order and
+    scattered to ``[B, N, w, w]`` (``packed``: ``[B, n_rows, w, Lp]``, the
+    last window of a row repeated into the tail); raises unless every
+    output element is written exactly once.  A model of the kernel's index
+    arithmetic for the CPU tests: no path of the package calls it."""
+    w = wind_size
+    T = w + 1
+    G, K = warp_lanes(w)
+    lg = G.bit_length() - 1
+    B, Hp, Wp = ops.frame.shape
+    n_rows, n_cols = ops.n_rows, ops.n_cols
+    n_bx = -(-n_cols // (WARPS * (32 // G)))
+    # lane-level index grids [n_rows, n_bx, WARPS, 32]
+    r = torch.arange(n_rows)[:, None, None, None]
+    bx = torch.arange(n_bx)[None, :, None, None]
+    warp = torch.arange(WARPS)[None, None, :, None]
+    lane = torch.arange(32)[None, None, None, :]
+    col = ((bx * WARPS + warp) << (5 - lg)) + (lane >> lg)
+    c = (lane & (G - 1)).expand(col.shape)
+    live = col < n_cols
+    win = r * n_cols + col.clamp(max=n_cols - 1)  # [n_rows, n_bx, WARPS, 32]
+    dy, dx, fy, fx = (m[:, win] for m in (ops.dy, ops.dx, ops.fy, ops.fx))
+    ty = (r * ops.step + ops.off + dy).clamp(0, Hp - T)
+    tx = (col.clamp(max=n_cols - 1) * ops.step + ops.off + dx).clamp(0, Wp - T)
+    gx, gy = 1.0 - fx, 1.0 - fy
+    w11, w21, w12, w22 = gx * gy, fx * gy, gx * fy, fx * fy
+    copy = (fy == 0.0) | (fx == 0.0)
+    slot_col = c[..., None] + G * torch.arange(K + 1)  # [..., K + 1]
+    flat = ops.frame.reshape(B, -1)
+    src_lane = (lane & ~(G - 1)) + ((c + 1) & (G - 1))  # the shuffle's source
+
+    def load_row(i):
+        in_tile = (slot_col <= w) & (i <= w)
+        idx = (ty + i)[..., None] * Wp + tx[..., None] + slot_col.clamp(max=w)
+        v = torch.gather(flat, 1, idx.reshape(B, -1)).reshape(idx.shape)
+        return torch.where(in_tile, v, torch.zeros((), dtype=v.dtype))
+
+    def right_neighbours(v):
+        offered = torch.where((c == 0)[..., None], v[..., 1:], v[..., :K])
+        src = src_lane.expand(offered.shape[:-1])[..., None].expand(offered.shape)
+        return torch.gather(offered, 4, src)
+
+    if packed:
+        Lp = packed_width(n_cols, w)
+        out = torch.zeros(B, n_rows, w, Lp)
+        copies = torch.where(col == n_cols - 1, Lp // w - n_cols + 1, 1)
+    else:
+        out = torch.zeros(B, n_rows * n_cols, w, w)
+        copies = torch.ones_like(col)
+    writes = torch.zeros(out.numel(), dtype=torch.int64)
+    b_idx = torch.arange(B).reshape(B, 1, 1, 1, 1, 1)
+    top = load_row(0)
+    top_right = right_neighbours(top)
+    for i in range(w):
+        below = load_row(i + 1)
+        below_right = right_neighbours(below)
+        t11, t21, t12, t22 = top[..., :K], top_right, below[..., :K], below_right
+        e = (Ellipsis, None)
+        acc = t11 * w11[e]
+        acc = acc + t21 * w21[e]
+        acc = acc + t12 * w12[e]
+        acc = acc + t22 * w22[e]
+        val = torch.where(copy[e], t11, acc)
+        j = slot_col[..., :K]
+        store = (live[..., None] & (j < w))
+        for q in range(int(copies.max())):
+            ok = store & (q < copies)[..., None]
+            if packed:
+                idx = (((b_idx * n_rows + r[..., None]) * w + i) * out.shape[-1]
+                       + col[..., None] * w + q * w + j)
+            else:
+                idx = ((b_idx * n_rows * n_cols + win[..., None]) * w + i) * w + j
+            idx = idx.expand(val.shape)[ok.expand(val.shape)]
+            out.view(-1)[idx] = val[ok.expand(val.shape)]
+            writes += torch.bincount(idx, minlength=writes.numel())
+        top, top_right = below, below_right
+    if not bool((writes == 1).all()):
+        raise RuntimeError("warp_window_steps: an output element is written "
+                           f"{int(writes.min())}..{int(writes.max())} times")
+    return out
 
 
 VARIANTS = ("rolls", "bf16", "lanephases", "mxu", "phases")
