@@ -9,10 +9,10 @@ where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the bilinear shift and the deformation (both interpolations)
-must match bit for bit, fractional shifts included (the kernels round every
-product and sum in the plain version's order); the bicubic shift 1e-3 for
-fractional shifts, nothing for integer ones; peak fit ``u, v`` 1e-5 px with equal masks
+Tolerances: the bilinear and bicubic shifts, the shift variants and the
+deformation (both interpolations) must match bit for bit, fractional shifts
+included (the kernels round every product and sum in the plain version's
+order); peak fit ``u, v`` 1e-5 px with equal masks
 (the kernel adds EPS after subtracting the minimum, the plain version
 ``EPS - min`` in one step); the correlate-and-fit and whole-pass kernels
 run their own FFT and sum in another order than ``torch.fft``: masks differ
@@ -32,7 +32,8 @@ import torch
 from torchpiv_tpu_torch import MultipassPIV, OfflinePIV, PIVConfig
 from torchpiv_tpu_torch.io.decode import imwrite_gray
 from torchpiv_tpu_torch.kernels.corrfit import correlate_peakfit, describe
-from torchpiv_tpu_torch.config import MAX_DEF_TILE, def_tile
+from torchpiv_tpu_torch.config import (MAX_BICUBIC_WIND, MAX_DEF_TILE,
+                                       MAX_SHIFT_WIND, def_tile)
 from torchpiv_tpu_torch.kernels.deform import def_windows
 from torchpiv_tpu_torch.kernels.deform import describe as def_describe
 from torchpiv_tpu_torch.kernels.fused_pass import fused_piv_pass
@@ -47,7 +48,7 @@ from torchpiv_tpu_torch.ops.deform import (BLOCK_WINDOWS, STAGES, block_geometry
                                            def_windows_reference)
 from torchpiv_tpu_torch.ops.packing import pack_windows
 from torchpiv_tpu_torch.ops.peakfit import correlation_to_displacement
-from torchpiv_tpu_torch.ops.shifts import shift_windows_reference
+from torchpiv_tpu_torch.ops.shifts import shift_windows_reference, warp_lanes
 from torchpiv_tpu_torch.ops.windows import extract_windows
 from torchpiv_tpu_torch.utils.synthetic import particle_pair, shear_flow
 
@@ -148,16 +149,28 @@ def test_variant_kernel_matches_plain_version_and_rolls(card, variant, shape, w,
     assert torch.equal(wrapper(frames[0], vx[0], vy[0], **kw), got[0])
 
 
+# every width the bicubic kernel serves differently: several windows a warp
+# (4, 16), a group one lane short (31), one to four columns a lane, with
+# and without the extra slot (32, 33, 64, 125)
+BICUBIC_WIDTHS = (4, 16, 31, 32, 33, 64, 125)
+
+
+@pytest.mark.parametrize("batch", [1, 5])
 @pytest.mark.parametrize("kind", ["integer", "fractional", "mixed"])
-@pytest.mark.parametrize("shape,w,o", [((256, 320), 32, 16), ((200, 260), 64, 32),
-                                       ((300, 300), 125, 60)])
-def test_bicubic_kernel_matches_plain_version(card, shape, w, o, kind):
+@pytest.mark.parametrize("w", BICUBIC_WIDTHS)
+def test_bicubic_kernel_matches_plain_version(card, w, kind, batch):
+    """Bit for bit, fractional shifts too: the kernel forms the plain
+    version's horizontal sums once per tile row and its vertical sums from
+    them, every product and sum rounded in the plain version's order."""
+    o = w // 2
+    per_block = 8 * (32 // max(4, min(32, 1 << (w - 1).bit_length())))
+    shape = _ragged_shape(w, o, per_block)
     H, W = shape
     n = ((H - w) // (w - o) + 1) * ((W - w) // (w - o) + 1)
     g = torch.Generator().manual_seed(w + 1)
-    frames = (torch.rand(3, H, W, generator=g) * 255).to(card)
-    vx = torch.rand(3, n, generator=g) * 3 * w - 1.5 * w  # past +-S = w/2
-    vy = torch.rand(3, n, generator=g) * 3 * w - 1.5 * w
+    frames = (torch.rand(batch, H, W, generator=g) * 255).to(card)
+    vx = torch.rand(batch, n, generator=g) * 3 * w - 1.5 * w  # past +-S = w/2
+    vy = torch.rand(batch, n, generator=g) * 3 * w - 1.5 * w
     if kind == "integer":
         vx, vy = vx.round(), vy.round()
     elif kind == "mixed":
@@ -170,10 +183,26 @@ def test_bicubic_kernel_matches_plain_version(card, shape, w, o, kind):
     torch.cuda.synchronize()
     assert (shift_windows_bicubic.launches, shift_windows.launches) == \
         (before[0] + 1, before[1])
-    if kind == "integer":  # weights (0, 1, 0, 0): the integer copy
-        assert torch.equal(got, want)
-    else:
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    assert torch.equal(got, want)
+    if kind == "integer":  # weights (0, 1, 0, 0): the integer copy, away from +S
+        copy = shift_windows(frames, vx, vy, **kw)
+        inside = (vx < w // 2) & (vy < w // 2)
+        assert torch.equal(got[inside], copy[inside])
+
+
+@pytest.mark.parametrize("kw", [dict(max_shift=5), dict(flat_wrap=False)])
+def test_bicubic_kernel_options_match_plain_version(card, kw):
+    shape, w, o = (256, 317), 32, 24
+    n = ((256 - w) // (w - o) + 1) * ((317 - w) // (w - o) + 1)
+    g = torch.Generator().manual_seed(7)
+    frames = (torch.rand(3, *shape, generator=g) * 255).to(card)
+    vx, vy = ((torch.rand(3, n, generator=g) * 3 * w - 1.5 * w).to(card)
+              for _ in range(2))
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o, **kw)
+    got = shift_windows_bicubic(frames, vx, vy, **kw)
+    want = shift_windows_reference(frames, vx, vy, interp="bicubic", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 # (w, margin): every width of WIDTHS that a DEF tile admits, an odd one
@@ -228,6 +257,26 @@ def test_shift_kernel_does_not_spill(card, w):
     assert info["shared_bytes"] == 0
     assert info["threads"] == 256
     assert info["windows"] == 8 * (32 // min(32, 1 << (w - 1).bit_length()))
+
+
+@pytest.mark.parametrize("w", [1, 3, 4, 16, 31, 32, 33, 64, 96, 125, 128])
+@pytest.mark.parametrize("name", ["shift_windows_bicubic", "shift_windows_phases"])
+def test_warp_shift_kernels_do_not_spill(card, name, w):
+    """Every instance of the two kernels on warp_lanes.cuh's map: no spill,
+    no shared memory, and the windows a block of the lane map."""
+    limit = MAX_BICUBIC_WIND if name == "shift_windows_bicubic" else MAX_SHIFT_WIND
+    if w > limit:
+        with pytest.raises(ValueError, match="wind_size"):
+            shift_describe(w, name)
+        return
+    info = shift_describe(w, name)
+    assert info["local_bytes"] == 0  # no spill, no stack frame
+    # four blocks of 256 threads an SM, two for three or four columns a lane
+    assert 0 < info["registers"] <= (64 if w <= 64 else 128)
+    assert info["shared_bytes"] == 0
+    assert info["threads"] == 256
+    reach = 3 if name == "shift_windows_bicubic" else 1
+    assert info["windows"] == 8 * (32 // warp_lanes(w, reach)[0])
 
 
 @pytest.mark.parametrize("interp", ["bilinear", "bicubic"])

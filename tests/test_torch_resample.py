@@ -1,6 +1,11 @@
-"""The work split of the two window-resampling kernels, on the CPU: the step
-models ``ops.shifts.warp_window_steps`` (``csrc/shift_windows.cu``: a warp a
-window, rows in registers, right neighbours by shuffle) and
+"""The work split of the window-resampling kernels, on the CPU: the step
+models ``ops.shifts.warp_window_steps`` (``csrc/shift_windows.cu``, and
+``csrc/shift_windows_phases.cu`` on the frame rounded to bfloat16: a warp a
+window, rows in registers, right neighbours by shuffle),
+``ops.shifts.warp_bicubic_steps`` (``csrc/shift_windows_bicubic.cu``: the
+same lane map with the tile's last three columns in an extra slot, three
+shuffles a slot, the horizontal sums once per tile row in a ring of four
+rows) and
 ``ops.deform.def_block_steps`` (``csrc/def_windows.cu``: a block walks eight
 windows of a grid row through two tile buffers, a thread a column quad,
 the residuals' row and column parts hoisted, each Keys weight the piece its
@@ -8,10 +13,13 @@ tap fixes) replay
 which lane or thread computes which pixel from which loaded row, shuffled
 neighbour, hoisted residual and Keys piece.  They are held bit
 for bit (``torch.equal``) to the plain versions ``blend_reference`` and
-``def_reference``, at every width the kernels serve differently, on ragged
+``def_reference`` (and ``blend_reference_bicubic``,
+``blend_reference_variant(..., "phases")``), at every width the kernels
+serve differently, on ragged
 grids, and once against the TPU kernels they replace
-(``shift_windows_pallas`` and ``def_windows_pallas`` in interpret mode) with
-the tolerances of ``test_torch_shift.py`` and ``test_torch_deform.py``.
+(``shift_windows_pallas``, bilinear and bicubic, and ``def_windows_pallas``
+in interpret mode) with the tolerances of ``test_torch_shift.py`` and
+``test_torch_deform.py``.
 The kernels themselves are held against the plain versions on a card in
 ``test_torch_cuda.py``."""
 import importlib.util
@@ -25,7 +33,8 @@ import torch
 
 from torchpiv_tpu.kernels.def_pallas import def_windows_pallas
 from torchpiv_tpu.kernels.shift_pallas import shift_windows_pallas
-from torchpiv_tpu_torch.config import MAX_DEF_TILE, MAX_SHIFT_WIND, def_tile
+from torchpiv_tpu_torch.config import (MAX_BICUBIC_WIND, MAX_DEF_TILE,
+                                       MAX_SHIFT_WIND, def_tile)
 from torchpiv_tpu_torch.kernels import _build
 from torchpiv_tpu_torch.ops.deform import (BLOCK_WINDOWS, block_geometry,
                                            def_block_steps, def_operands,
@@ -33,12 +42,19 @@ from torchpiv_tpu_torch.ops.deform import (BLOCK_WINDOWS, block_geometry,
                                            keys_weight)
 from torchpiv_tpu_torch.ops.packing import pack_windows
 from torchpiv_tpu_torch.ops.shifts import (WARPS, blend_reference,
-                                           shift_operands, warp_lanes,
-                                           warp_window_steps)
+                                           blend_reference_bicubic,
+                                           blend_reference_variant,
+                                           shift_operands, warp_bicubic_steps,
+                                           warp_lanes, warp_window_steps)
 
 # every width the shift kernel serves differently: several windows a warp
 # (w <= 16), idle lanes (12, 24), one to four columns a lane (32-128)
 WIDTHS = (4, 8, 12, 16, 24, 32, 48, 64, 128)
+# every width where the bicubic kernel's lane map differs: several windows a
+# warp (4-16), idle lanes (12, 24), a group one lane short of the stencil's
+# three extra columns (31), one to four columns a lane with and without the
+# extra slot (32-125)
+BICUBIC_WIDTHS = (4, 8, 12, 16, 24, 31, 32, 33, 48, 64, 96, 125)
 # (w, margin) of the DEF kernel: margins 1-4, an odd width, tiles up to 129
 DEF_CASES = ((4, 1), (8, 2), (12, 3), (16, 4), (24, 2), (32, 2), (33, 1),
              (48, 3), (64, 4), (120, 4))
@@ -52,8 +68,8 @@ def _grid_shape(w, o, per_block, n_rows=2):
     return w + step * (n_rows - 1) + step - 1, w + step * (n_cols - 1) + step - 1
 
 
-def _windows_a_block(w):
-    G, _ = warp_lanes(w)
+def _windows_a_block(w, reach=1):
+    G, _ = warp_lanes(w, reach)
     return WARPS * (32 // G)
 
 
@@ -69,9 +85,9 @@ def _maps(rng, batch, n, w, kind):
     return vx, vy
 
 
-def _shift_case(w, kind, batch, seed, n_rows=2):
+def _shift_case(w, kind, batch, seed, n_rows=2, reach=1):
     o = w // 2
-    shape = _grid_shape(w, o, _windows_a_block(w), n_rows)
+    shape = _grid_shape(w, o, _windows_a_block(w, reach), n_rows)
     n = ((shape[0] - w) // (w - o) + 1) * ((shape[1] - w) // (w - o) + 1)
     rng = np.random.default_rng(seed)
     frame = rng.uniform(0, 255, (batch, *shape)).astype(np.float32)
@@ -139,6 +155,91 @@ def test_warp_window_steps_match_pallas_kernel(kind):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     else:
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["integer", "mixed", "fractional"])
+@pytest.mark.parametrize("w", WIDTHS)
+def test_warp_window_steps_model_the_phases_kernel(w, kind):
+    """``shift_windows_phases.cu`` runs the bilinear kernel's steps on the
+    padded frame rounded to bfloat16: the model on that frame is the plain
+    version of ``"phases"``."""
+    shape, o, frame, vx, vy = _shift_case(w, kind, 3, seed=w + 5)
+    frame = frame * np.float32(0.731) + np.float32(0.37)  # not exact in bfloat16
+    ops = shift_operands(*(torch.from_numpy(a) for a in (frame, vx, vy)),
+                         frame_shape=shape, wind_size=w, overlap=o)
+    rounded = ops._replace(frame=ops.frame.to(torch.bfloat16).to(torch.float32))
+    want = blend_reference_variant(ops, w, "phases")
+    assert torch.equal(warp_window_steps(rounded, w), want)
+    assert not torch.equal(want, blend_reference(ops, w))
+
+
+def _bicubic_ops(w, kind, batch, seed, n_rows=2, **kw):
+    shape, o, frame, vx, vy = _shift_case(w, kind, batch, seed, n_rows, reach=3)
+    return shift_operands(*(torch.from_numpy(a) for a in (frame, vx, vy)),
+                          frame_shape=shape, wind_size=w, overlap=o,
+                          interp="bicubic", **kw)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("kind", ["integer", "mixed", "fractional"])
+@pytest.mark.parametrize("w", BICUBIC_WIDTHS)
+def test_warp_bicubic_steps_equal_blend_reference_bicubic(w, kind, batch):
+    ops = _bicubic_ops(w, kind, batch, seed=w + 2)
+    assert ops.n_cols % _windows_a_block(w, reach=3) != 0  # a ragged last block
+    assert torch.equal(warp_bicubic_steps(ops, w), blend_reference_bicubic(ops, w))
+
+
+@pytest.mark.parametrize("kw", [dict(max_shift=5), dict(flat_wrap=False)])
+def test_warp_bicubic_steps_options(kw):
+    ops = _bicubic_ops(32, "fractional", 1, seed=4, **kw)
+    assert torch.equal(warp_bicubic_steps(ops, 32), blend_reference_bicubic(ops, 32))
+
+
+def test_bicubic_lane_map_covers_every_admitted_width():
+    """Every width up to ``MAX_BICUBIC_WIND``: a group is a power of two of
+    lanes that divides the warp and is at least the stencil's reach of 3;
+    its lanes' slots hold every tile column the stencil reads (0..w+2) once,
+    the ones past the main slots in the extra slot of the group's first
+    lanes; and each column j + d (d = 1..3) that a slot's column j needs is
+    in the slot that the shuffle reads: lane (c + d) mod G's own, or, past
+    the group's end, the next one, which that lane offers."""
+    for w in range(1, MAX_BICUBIC_WIND + 1):
+        G, K = warp_lanes(w, reach=3)
+        assert G & (G - 1) == 0 and 32 % G == 0 and G >= 3 and K <= 4
+        assert G * K >= w and (K == 1 or G == 32)
+        held = {(c, k): c + G * k for c in range(G) for k in range(K + 1)
+                if c + G * k <= w + 2}
+        assert sorted(held.values()) == list(range(w + 3))
+        assert all(c < 3 for (c, k) in held if k == K)
+        for c in range(G):
+            for k in range(K):
+                if c + G * k >= w:
+                    continue  # no output column: its sums are not stored
+                for d in (1, 2, 3):
+                    src = (c + d) % G
+                    slot = k + 1 if c + d >= G else k
+                    assert held[(src, slot)] == c + G * k + d
+
+
+@pytest.mark.parametrize("kind", ["integer", "mixed", "fractional"])
+def test_warp_bicubic_steps_match_pallas_kernel(kind):
+    """Through the TPU kernel the model replaces, on the same numpy inputs,
+    with ``test_torch_shift.py``'s tolerances: integer shifts bit for bit
+    (the weights are (0, 1, 0, 0)), the others within 1e-3 of a grey level
+    (XLA's CPU backend may contract the sums' multiply-adds)."""
+    w = 16
+    shape, o, frame, vx, vy = _shift_case(w, kind, 1, seed=23, n_rows=3, reach=3)
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o, interp="bicubic")
+    want = np.asarray(shift_windows_pallas(
+        jnp.asarray(frame[0]), jnp.asarray(vx[0]), jnp.asarray(vy[0]),
+        interpret=True, **kw))
+    ops = shift_operands(*(torch.from_numpy(a) for a in (frame, vx, vy)), **kw)
+    got = warp_bicubic_steps(ops, w)[0].numpy()
+    assert got.shape == want.shape
+    if kind == "integer":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
 
 
 def _def_case(w, margin, kind, batch, seed, n_rows=2):
@@ -248,3 +349,30 @@ def test_def_anatomy_tool_edits_the_committed_source():
            "ptxas info    : Used 64 registers, 380 bytes cmem[0]\n")
     assert tool.instance_summary(log, cubic=False)["registers"] == 64
     assert tool.instance_summary(log, cubic=True)["registers"] == 80
+
+
+def test_depth_tool_edits_the_committed_sources():
+    """``tools/warp_shift_depth_cuda.py``: each depth of each kernel is a
+    copy of the package's sources whose one-column ``rows_ahead`` is that
+    depth and which differs from the committed source nowhere else; the
+    committed depths are among those it times."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "warp_shift_depth_cuda.py"
+    spec = importlib.util.spec_from_file_location("warp_shift_depth_cuda", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert set(tool.DEPTHS) == {"shift_windows_bicubic", "shift_windows_phases"}
+    for name, depths in tool.DEPTHS.items():
+        committed = (_build.CSRC / f"{name}.cu").read_text()
+        assert int(tool.AHEAD.search(committed).group(1)) in depths
+        if name == "shift_windows_bicubic":  # the ring: a multiple of 4 rows
+            assert all(d % 4 == 0 for d in depths)
+        for depth in depths:
+            copy = tool.edited_copy(name, depth)
+            try:
+                edited = (copy / f"{name}.cu").read_text()
+                assert tool.AHEAD.findall(edited) == [str(depth)]
+                assert tool.AHEAD.sub("", edited) == tool.AHEAD.sub("", committed)
+                assert sorted(p.name for p in copy.iterdir()) == \
+                    sorted(p.name for p in _build.CSRC.iterdir())
+            finally:
+                shutil.rmtree(copy)

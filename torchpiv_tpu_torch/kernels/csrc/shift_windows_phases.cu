@@ -1,5 +1,5 @@
-// Per-window CWS/DWS window shift from a phase table of the bfloat16 frame
-// for Hopper (sm_90a), plain C interface.
+// Per-window CWS/DWS window shift of the bfloat16 frame for Hopper
+// (sm_90a), plain C interface: the "phases" variant.
 //
 // Replaces the TPU kernel `_shift_kernel_phases` behind
 // `shift_windows_pallas(variant="phases")`
@@ -12,149 +12,170 @@
 // plain PyTorch version is `blend_reference_variant(..., "phases")` in
 // torchpiv_tpu_torch/ops/shifts.py.
 //
-// The idea kept from the TPU variant: a table of pre-shifted copies of the
-// source buys aligned copies, so that no window realigns its tile.  The TPU
-// keeps 16 row-shifted copies of a band in VMEM (rows are its expensive
-// axis).  On this card the expensive alignment is that of the 16-byte
-// asynchronous copy (`cp.async`), which needs both addresses on 16-byte
-// boundaries, that is 8 bfloat16 columns: a prologue kernel writes P = 8
-// copies of the frame to device memory, copy p shifted left by p columns,
-//     table[p][row][c] = frame[row][c + p]   (0 beyond column Wp),
-// and a window whose tile starts at column tx copies its rows from copy
-// p = tx % 8 at the aligned column tx - p, in whole 16-byte pieces, with
-// no per-window realignment; rows need no alignment here.  The table costs
-// 8 times the frame's memory (the TPU variant: 16 times the band's VMEM)
-// and one more pass over it per launch.  The wrapper allocates the table;
-// nothing is allocated here.
+// The TPU variant keeps a table of pre-shifted copies of the source so
+// that no window realigns its tile: on the TPU a tile that starts off the
+// (8, 128) grid costs rolls.  An earlier design here kept that means: a
+// prologue kernel wrote 8 column-shifted copies of each bfloat16 frame
+// (69.5 MB a 4 MP frame, 278 MB of scratch for a batch of 4) so that each
+// window could stage its tile by aligned 16-byte `cp.async` copies.  On
+// this card a window that is not staged at all has nothing to align: a
+// warp reads each tile row straight into registers at any column, so the
+// table, its prologue pass and its memory are gone.  The function is the
+// same; only the means were the TPU's.
 //
-// Bound on an H100: bytes, the same as shift_windows_bf16.cu (output plus
-// one bfloat16 frame; the table is this design's own traffic and not part
-// of the bound).  At the main path's pass-2 shape (2048^2 frame, w = 32,
-// o = 16, S = 16) the prologue writes 8 * 2080 * 2088 * 2 = 69.5 MB a
-// frame, about as much as the windows it then helps to write (66.1 MB), so
-// the variant cannot win there; its time is written down beside row 1's.
+// Bound on an H100: bytes, the output plus one bfloat16 frame.  At the main
+// path's pass-2 shape (2048^2 frame, w = 32, o = 16, S = 16: N = 16129
+// windows) one frame writes N*w*w*4 = 66.1 MB and reads the 2080^2*2 =
+// 8.7 MB bfloat16 frame plus 4 maps of N*4 bytes: about 22 us at
+// 3.35 TB/s.
+//
+// What the design does about the bound: shift_windows.cu's, with the lane
+// map of warp_lanes.cuh (reach 1).  A warp owns a window; the warp walks
+// the w + 1 tile rows, each one coalesced 2-byte `__ldg` a slot widened to
+// float32 (`__bfloat162float`), `rows_ahead` rows before their first
+// store; the right neighbour comes by one shuffle a slot; the blend is
+// shift.cuh's `blend_corners`, and each output row one coalesced streaming
+// store (`__stcs`).  No shared memory, no barrier, no integer division.
 //
 // The blend is shift.cuh's: the result matches the plain version to the
 // last bit.
 
-#include <cuda_bf16.h>
-
 #include "shift.cuh"
+#include "warp_lanes.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPhases = 8;  // bfloat16 elements in 16 bytes
+using piv::warp::kWarps;
+using piv::warp::Lanes;
 
-// table[b][p][row][8 * ch .. 8 * ch + 7] by one thread
-__global__ void __launch_bounds__(kThreads)
-phase_table_kernel(const unsigned short* __restrict__ frame,
-                   uint4* __restrict__ table, int64_t n_chunks, int Hp, int Wp,
-                   int pitch, int tpitch) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_chunks) return;
-  const int cpr = tpitch / 8;  // chunks per table row
-  const int ch = (int)(i % cpr);
-  const int64_t line = i / cpr;  // (b * kPhases + p) * Hp + row
-  const int row = (int)(line % Hp);
-  const int64_t bp = line / Hp;
-  const int p = (int)(bp % kPhases);
-  const int64_t b = bp / kPhases;
-  const unsigned short* src = frame + (b * Hp + row) * pitch;
-  const int c0 = ch * 8 + p;
-  unsigned v[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = c0 + k < Wp ? src[c0 + k] : 0u;
-  table[i] = make_uint4(v[0] | (v[1] << 16), v[2] | (v[3] << 16),
-                        v[4] | (v[5] << 16), v[6] | (v[7] << 16));
-}
+// Tile rows loaded ahead of their first store, and blocks an SM the
+// register budget is cut for, by columns a lane: shift_windows.cu's, but
+// six rows for one column a lane, not eight, which spill here (the widened
+// bfloat16 loads need more registers); seven were slower, and the rows
+// refilled one by one as they are used slower still (timed on an H100,
+// PERF.md §6).
+template <int K>
+__host__ __device__ constexpr int rows_ahead() { return K == 1 ? 6 : 4; }
+template <int K>
+__host__ __device__ constexpr int min_blocks() { return K < 3 ? 4 : 2; }
 
-__global__ void __launch_bounds__(kThreads)
-shift_windows_phases_kernel(const __nv_bfloat16* __restrict__ table,
+template <int K>
+__global__ void __launch_bounds__(kWarps * 32, min_blocks<K>())
+shift_windows_phases_kernel(const __nv_bfloat16* __restrict__ frame,
                             const int* __restrict__ dy,
                             const int* __restrict__ dx,
                             const float* __restrict__ fy,
                             const float* __restrict__ fx,
                             float* __restrict__ out,
-                            int Hp, int Wp, int tpitch, int n_cols, int n_win,
-                            int w, int step, int off) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int n = blockIdx.x;  // window, row-major over the grid
-  const int b = blockIdx.y;  // frame of the batch
-  const int64_t wi = (int64_t)b * n_win + n;
+                            int Hp, int Wp, int pitch, int n_rows, int n_cols,
+                            int w, int step, int off, int lg) {
+  const int G = 1 << lg;
+  const int lane = threadIdx.x & 31;
+  const int c = lane & (G - 1);  // the lane's first column
+  const int r = blockIdx.y;      // grid row of the block's windows
+  const int b = blockIdx.z;      // frame of the batch
+  const int col = ((blockIdx.x * kWarps + (threadIdx.x >> 5)) << (5 - lg)) +
+                  (lane >> lg);  // grid column of the group's window
+  const bool live = col < n_cols;  // a ragged row's last groups only load
+  const int64_t wi = ((int64_t)b * n_rows + r) * n_cols + min(col, n_cols - 1);
   const int T = w + 1;
-  int ty, tx;
-  piv::tile_origin(n, n_cols, step, off, dy[wi], dx[wi], Hp, Wp, T, &ty, &tx);
 
-  const int p = tx % kPhases;
-  const int chunks = (T + 7) / 8;  // 16-byte pieces of a tile row
-  const int sp = 8 * chunks;       // the staged row's length in elements
-  const __nv_bfloat16* src =
-      table + (((int64_t)b * kPhases + p) * Hp + ty) * tpitch + (tx - p);
-  for (int i = threadIdx.x; i < T * chunks; i += blockDim.x) {
-    const int ri = i / chunks;
-    const int cj = i - ri * chunks;
-    piv::cp_async16(tile + ri * sp + 8 * cj, src + (int64_t)ri * tpitch + 8 * cj);
-  }
-  piv::cp_async_wait();
-  __syncthreads();
-
+  const int ty = min(max(r * step + off + dy[wi], 0), Hp - T);
+  const int tx = min(max(min(col, n_cols - 1) * step + off + dx[wi], 0), Wp - T);
+  const __nv_bfloat16* src = frame + ((int64_t)b * Hp + ty) * pitch + tx;
   const piv::Blend blend = piv::blend_weights(fy[wi], fx[wi]);
   float* dst = out + wi * w * w;
-  for (int i = threadIdx.x; i < w * w; i += blockDim.x) {
-    const int ri = i / w;
-    const __nv_bfloat16* t = tile + ri * sp + (i - ri * w);
-    dst[i] = piv::blend_corners(__bfloat162float(t[0]), __bfloat162float(t[1]),
-                                __bfloat162float(t[sp]),
-                                __bfloat162float(t[sp + 1]), blend);
+
+  float top[K + 1], top_right[K];
+  piv::warp::load_row<K>(src, pitch, 0, c, G, w, top);
+  piv::warp::right_at<K>(top, c, G, 1, top_right);
+  constexpr int kRows = rows_ahead<K>();
+  for (int i0 = 0; i0 < w; i0 += kRows) {
+    float below[kRows][K + 1];
+#pragma unroll
+    for (int u = 0; u < kRows; ++u)
+      piv::warp::load_row<K>(src, pitch, i0 + u + 1, c, G, w, below[u]);
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const int i = i0 + u;  // output row: tile rows i and i + 1
+      if (i >= w) break;     // the same for the whole warp
+      float below_right[K];
+      piv::warp::right_at<K>(below[u], c, G, 1, below_right);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = c + G * k;
+        const float val = piv::blend_corners(top[k], top_right[k], below[u][k],
+                                             below_right[k], blend);
+        if (live && j < w) __stcs(dst + i * w + j, val);
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        top[k] = below[u][k];
+        top_right[k] = below_right[k];
+      }
+      top[K] = below[u][K];
+    }
   }
 }
+
+template <int K>
+int launch(const __nv_bfloat16* frame, const int* dy, const int* dx,
+           const float* fy, const float* fx, float* out, int B, int Hp, int Wp,
+           int pitch, int n_rows, int n_cols, int w, int step, int off,
+           const Lanes& l, cudaStream_t stream) {
+  const int per_block = kWarps * l.P;  // windows a block
+  dim3 grid((n_cols + per_block - 1) / per_block, n_rows, B);
+  shift_windows_phases_kernel<K><<<grid, kWarps * 32, 0, stream>>>(
+      frame, dy, dx, fy, fx, out, Hp, Wp, pitch, n_rows, n_cols, w, step, off,
+      l.lg);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int describe(const Lanes& l, int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t e =
+      cudaFuncGetAttributes(&attr, shift_windows_phases_kernel<K>);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)attr.sharedSizeBytes;
+  out[3] = kWarps * 32;
+  out[4] = kWarps * l.P;
+  return 0;
+}
+
+constexpr int kReach = 1;  // tile columns the blend reads past the window
+constexpr int kMaxWind = 128;  // four columns a lane
 
 }  // namespace
 
 extern "C" {
 
-// frame: [B, Hp, pitch] bf16 (columns beyond Wp are not read); table:
-// [B, 8, Hp, tpitch] bf16 scratch, tpitch a multiple of 8 and >= Wp + 8,
-// 16-byte aligned; dy, dx: [B, N] i32; fy, fx: [B, N] f32; out:
-// [B, N, w, w] f32 with N = n_rows * n_cols.  `stages` selects what runs:
-// 1 the prologue that fills the table, 2 the shift from a filled table,
-// 3 both (what the wrapper asks for).  Launches on `stream` and returns
-// the first launch error (0 on success).
-int shift_windows_phases_f32(const void* frame, void* table, const int* dy,
-                             const int* dx, const float* fy, const float* fx,
-                             float* out, int B, int Hp, int Wp, int pitch,
-                             int tpitch, int n_rows, int n_cols, int w,
-                             int step, int off, int stages, void* stream) {
-  if (tpitch % 8 != 0 || tpitch < Wp + 8 || pitch < Wp)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (stages & 1) {
-    const int64_t n_chunks = (int64_t)B * kPhases * Hp * (tpitch / 8);
-    const int64_t blocks = (n_chunks + kThreads - 1) / kThreads;
-    phase_table_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-        static_cast<const unsigned short*>(frame), static_cast<uint4*>(table),
-        n_chunks, Hp, Wp, pitch, tpitch);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (stages & 2) {
-    const int T = w + 1;
-    const size_t smem = (size_t)T * 8 * ((T + 7) / 8) * sizeof(__nv_bfloat16);
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          shift_windows_phases_kernel,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    const int n_win = n_rows * n_cols;
-    dim3 grid(n_win, B);
-    shift_windows_phases_kernel<<<grid, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(table), dy, dx, fy, fx, out, Hp, Wp,
-        tpitch, n_cols, n_win, w, step, off);
-  }
-  return (int)cudaGetLastError();
+// frame: [B, Hp, pitch] bf16 (columns from Wp on are not read); dy, dx:
+// [B, N] i32; fy, fx: [B, N] f32; out: [B, N, w, w] f32 with
+// N = n_rows * n_cols.  w in 1..128.  Launches on `stream` and returns
+// cudaGetLastError() of the launch (0 on success).
+int shift_windows_phases_f32(const void* frame, const int* dy, const int* dx,
+                             const float* fy, const float* fx, float* out,
+                             int B, int Hp, int Wp, int pitch, int n_rows,
+                             int n_cols, int w, int step, int off,
+                             void* stream) {
+  if (w < 1 || w > kMaxWind || pitch < Wp) return (int)cudaErrorInvalidValue;
+  const Lanes l = piv::warp::lanes_for(w, kReach);
+  PIV_FOR_SLOTS(l.K, launch, static_cast<const __nv_bfloat16*>(frame), dy, dx,
+                fy, fx, out, B, Hp, Wp, pitch, n_rows, n_cols, w, step, off, l,
+                (cudaStream_t)stream);
+}
+
+// out[0..4]: registers a thread, bytes of local memory a thread (spills and
+// stack), bytes of shared memory a block, threads a block, windows a block
+// of the instance that serves window size w.  Returns a CUDA error code, 0
+// on success.
+int shift_windows_phases_describe(int w, int* out) {
+  if (w < 1 || w > kMaxWind) return (int)cudaErrorInvalidValue;
+  const Lanes l = piv::warp::lanes_for(w, kReach);
+  PIV_FOR_SLOTS(l.K, describe, l, out);
 }
 
 const char* shift_windows_phases_error_string(int code) {

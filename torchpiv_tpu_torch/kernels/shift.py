@@ -11,10 +11,13 @@ variant never steps down to another kernel or to the plain version.
 (``variant="rolls"``), ``shift_windows_bicubic.launches`` those of the
 bicubic one, and ``shift_windows_<variant>.launches`` those of a variant.
 
-The variants take what the TPU wrapper takes for them: bilinear only, no
-``packed`` output, float32 output.  ``"bf16"``, ``"mxu"`` and ``"phases"``
-read the padded frame cast to bfloat16 (round to nearest even, after the
-flat-wrap pad); ``"lanephases"`` reads it in float32.
+The bilinear kernel, the bicubic one and ``"phases"`` keep a window in a
+warp's registers (a tile row a coalesced load, neighbours by shuffle, no
+shared memory); ``describe`` reports what the compiler made of each of
+their instances.  The variants take what the TPU wrapper takes for them:
+bilinear only, no ``packed`` output, float32 output.  ``"bf16"``, ``"mxu"``
+and ``"phases"`` read the padded frame cast to bfloat16 (round to nearest
+even, after the flat-wrap pad); ``"lanephases"`` reads it in float32.
 
 ``packed=True`` (bilinear only) writes the lane-packed layout of the JAX
 package's pass-fusion kernels (``ops/packing.py``) straight from the kernel.
@@ -35,19 +38,24 @@ from ..ops.shifts import (BF16_VARIANTS, VARIANTS, ShiftOperands,
 from . import _build
 
 # the limits of the TPU kernels, kept so that both engines take the same
-# configurations; the bilinear kernel serves up to four columns a lane
-# (w = 128), the bicubic one stages (w+4)^2 f32 = 66 KB at w = 125
+# configurations
 MAX_WIND = {"bilinear": MAX_SHIFT_WIND, "bicubic": MAX_BICUBIC_WIND}
+# the kernels with a ``<name>_describe`` entry, and the widths they take
+DESCRIBED = {"shift_windows": MAX_SHIFT_WIND,
+             "shift_windows_bicubic": MAX_BICUBIC_WIND,
+             "shift_windows_phases": MAX_SHIFT_WIND}
 
 
-def describe(wind_size: int) -> Dict[str, int]:
-    """What the compiler made of the bilinear kernel's instance for
+def describe(wind_size: int, name: str = "shift_windows") -> Dict[str, int]:
+    """What the compiler made of kernel ``name``'s instance for
     ``wind_size`` (``_build.describe``): registers, local bytes, shared
     bytes, threads and windows a block."""
-    if not 1 <= wind_size <= MAX_SHIFT_WIND:
-        raise ValueError(f"shift_windows: wind_size={wind_size} not in "
-                         f"1..{MAX_SHIFT_WIND}")
-    return _build.describe("shift_windows", wind_size)
+    if name not in DESCRIBED:
+        raise ValueError(f"no describe entry for {name!r}")
+    if not 1 <= wind_size <= DESCRIBED[name]:
+        raise ValueError(f"{name}: wind_size={wind_size} not in "
+                         f"1..{DESCRIBED[name]}")
+    return _build.describe(name, wind_size)
 
 
 def launch(ops: ShiftOperands, wind_size: int, interp: str = "bilinear",
@@ -83,9 +91,6 @@ def launch(ops: ShiftOperands, wind_size: int, interp: str = "bilinear",
     return out
 
 
-PHASES = 8  # copies in the "phases" table: bfloat16 elements in 16 bytes
-
-
 def variant_frame(ops: ShiftOperands, variant: str) -> torch.Tensor:
     """The frame a variant's kernel reads: ``ops.frame`` with its rows
     padded with zeros to the pitch the kernel's vector loads need (the
@@ -103,13 +108,11 @@ def variant_frame(ops: ShiftOperands, variant: str) -> torch.Tensor:
 
 
 def launch_variant(ops: ShiftOperands, wind_size: int, variant: str,
-                   max_shift: int, frame: Optional[torch.Tensor] = None,
-                   stages: int = 3) -> torch.Tensor:
+                   max_shift: int, frame: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """Launch the kernel of ``variant`` on CUDA ``ShiftOperands`` ->
     ``[B, N, w, w]``.  ``frame`` is ``variant_frame(ops, variant)`` when the
-    caller has it already.  ``stages`` (``"phases"`` only, for timing) is 1
-    for the prologue that fills the phase table alone, 2 for the shift alone
-    from a table that holds whatever its buffer held, 3 for both."""
+    caller has it already."""
     name = f"shift_windows_{variant}"
     B, Hp, Wp = ops.frame.shape
     dev = ops.frame.device
@@ -118,28 +121,16 @@ def launch_variant(ops: ShiftOperands, wind_size: int, variant: str,
     pitch = frame.shape[-1]
     out = torch.empty((B, ops.n_rows * ops.n_cols, wind_size, wind_size),
                       dtype=torch.float32, device=dev)
-    maps = (ops.dy.data_ptr(), ops.dx.data_ptr(), ops.fy.data_ptr(),
-            ops.fx.data_ptr(), out.data_ptr())
-    grid = (ops.n_rows, ops.n_cols, wind_size, ops.step, ops.off)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    extra = (max_shift,) if variant == "lanephases" else ()
+    fn = _build.function(
+        name, f"{name}_f32",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * (9 + len(extra))
+        + [ctypes.c_void_p])
     with torch.cuda.device(dev):
-        if variant == "phases":
-            tpitch = -(-(Wp + 8) // 8) * 8
-            table = torch.empty((B, PHASES, Hp, tpitch), dtype=torch.bfloat16,
-                                device=dev)
-            fn = _build.function(
-                name, f"{name}_f32",
-                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
-            rc = fn(frame.data_ptr(), table.data_ptr(), *maps, B, Hp, Wp, pitch,
-                    tpitch, *grid, stages, stream)
-        else:
-            extra = (max_shift,) if variant == "lanephases" else ()
-            fn = _build.function(
-                name, f"{name}_f32",
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * (9 + len(extra))
-                + [ctypes.c_void_p])
-            rc = fn(frame.data_ptr(), *maps, B, Hp, Wp, pitch, *grid, *extra,
-                    stream)
+        rc = fn(frame.data_ptr(), ops.dy.data_ptr(), ops.dx.data_ptr(),
+                ops.fy.data_ptr(), ops.fx.data_ptr(), out.data_ptr(), B, Hp, Wp,
+                pitch, ops.n_rows, ops.n_cols, wind_size, ops.step, ops.off,
+                *extra, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, rc)
     VARIANT_WRAPPERS[variant].launches += 1
     return out
@@ -238,8 +229,8 @@ def shift_windows_mxu(frame, vel_x, vel_y, **kw) -> torch.Tensor:
 
 
 def shift_windows_phases(frame, vel_x, vel_y, **kw) -> torch.Tensor:
-    """``shift_windows`` with ``variant="phases"``: the kernel that copies
-    aligned rows from a phase table of the frame."""
+    """``shift_windows`` with ``variant="phases"``: the window shift of the
+    bfloat16 frame, a window in a warp's registers."""
     return shift_windows(frame, vel_x, vel_y, variant="phases", **kw)
 
 

@@ -189,84 +189,135 @@ def blend_reference(ops: ShiftOperands, wind_size: int) -> torch.Tensor:
     return torch.where((fy == 0.0) | (fx == 0.0), f11, blend)
 
 
-WARPS = 8  # warps a block of csrc/shift_windows.cu
+WARPS = 8  # warps a block of csrc/shift_windows.cu and csrc/warp_lanes.cuh
 
 
-def warp_lanes(w: int) -> Tuple[int, int]:
-    """``(G, K)`` of ``csrc/shift_windows.cu`` for window size ``w``: a
-    window a group of ``G`` lanes (a power of two; ``32 // G`` windows a
+def warp_lanes(w: int, reach: int = 1) -> Tuple[int, int]:
+    """``(G, K)`` of the lane map for window size ``w`` whose stencil reads
+    ``reach`` tile columns past the window (``csrc/shift_windows.cu``,
+    ``csrc/warp_lanes.cuh``: 1 bilinear, 3 bicubic): a window a group of
+    ``G`` lanes (a power of two, at least ``reach``; ``32 // G`` windows a
     warp), ``K`` tile columns a lane."""
     if w > 32:
         return 32, -(-w // 32)
-    return 1 << max(w - 1, 0).bit_length(), 1
+    return 1 << max(w - 1, reach - 1, 0).bit_length(), 1
 
 
-def warp_window_steps(ops: ShiftOperands, wind_size: int,
-                      packed: bool = False) -> torch.Tensor:
-    """The bilinear windows by the steps of ``csrc/shift_windows.cu``, with
-    tensor ops: block ``(bx, r, b)`` of ``WARPS`` warps; lane ``l`` of a
-    warp serves the window in grid column ``((bx * WARPS + warp) << (5 -
-    lg)) + (l >> lg)`` of row ``r`` (``G = 1 << lg``) as lane ``c = l & (G -
-    1)`` of its group; slot ``k`` of lane ``c`` holds tile column ``c + G *
-    k`` where the tile has it; the warp walks the tile rows, each loaded
-    once and carried to the next step as the row above; a slot's right
-    neighbour comes from the group's lane ``(c + 1) & (G - 1)``, whose
-    lane 0 offers its next slot.  Blended in ``blend_corners``' order and
-    scattered to ``[B, N, w, w]`` (``packed``: ``[B, n_rows, w, Lp]``, the
-    last window of a row repeated into the tail); raises unless every
-    output element is written exactly once.  A model of the kernel's index
-    arithmetic for the CPU tests: no path of the package calls it."""
-    w = wind_size
-    T = w + 1
-    G, K = warp_lanes(w)
+class _WarpGrid(NamedTuple):
+    """Lane-level index grids ``[n_rows, n_bx, WARPS, 32]`` of a warp-a-window
+    kernel and the per-lane window operands ``[B, ...]`` of the same shape."""
+
+    G: int
+    K: int
+    r: torch.Tensor  # grid row of the block
+    col: torch.Tensor  # grid column of the lane's window
+    c: torch.Tensor  # the lane's place in its group
+    group: torch.Tensor  # the group's first lane
+    live: torch.Tensor  # the window exists (a ragged row's last groups only load)
+    win: torch.Tensor  # flat window index, clamped into the row
+    slot_col: torch.Tensor  # [..., K + 1] tile column of each slot
+    ty: torch.Tensor  # tile origin, clamped
+    tx: torch.Tensor
+    fy: torch.Tensor
+    fx: torch.Tensor
+
+
+def _warp_grid(ops: ShiftOperands, w: int, reach: int, margin: int) -> _WarpGrid:
+    """Block ``(bx, r, b)`` of ``WARPS`` warps; lane ``l`` of a warp serves
+    the window in grid column ``((bx * WARPS + warp) << (5 - lg)) + (l >>
+    lg)`` of row ``r`` (``G = 1 << lg``) as lane ``c = l & (G - 1)`` of its
+    group; slot ``k`` holds tile column ``c + G * k``.  The tile of side
+    ``w + reach + margin`` (``margin`` the stencil's reach before the
+    window: 0 bilinear, 1 bicubic) starts at the window's origin plus its
+    integer shift minus ``margin``, clamped into the frame."""
+    G, K = warp_lanes(w, reach)
     lg = G.bit_length() - 1
+    T = w + reach + margin
     B, Hp, Wp = ops.frame.shape
     n_rows, n_cols = ops.n_rows, ops.n_cols
     n_bx = -(-n_cols // (WARPS * (32 // G)))
-    # lane-level index grids [n_rows, n_bx, WARPS, 32]
     r = torch.arange(n_rows)[:, None, None, None]
     bx = torch.arange(n_bx)[None, :, None, None]
     warp = torch.arange(WARPS)[None, None, :, None]
     lane = torch.arange(32)[None, None, None, :]
     col = ((bx * WARPS + warp) << (5 - lg)) + (lane >> lg)
     c = (lane & (G - 1)).expand(col.shape)
-    live = col < n_cols
-    win = r * n_cols + col.clamp(max=n_cols - 1)  # [n_rows, n_bx, WARPS, 32]
+    win = r * n_cols + col.clamp(max=n_cols - 1)
     dy, dx, fy, fx = (m[:, win] for m in (ops.dy, ops.dx, ops.fy, ops.fx))
-    ty = (r * ops.step + ops.off + dy).clamp(0, Hp - T)
-    tx = (col.clamp(max=n_cols - 1) * ops.step + ops.off + dx).clamp(0, Wp - T)
-    gx, gy = 1.0 - fx, 1.0 - fy
-    w11, w21, w12, w22 = gx * gy, fx * gy, gx * fy, fx * fy
-    copy = (fy == 0.0) | (fx == 0.0)
-    slot_col = c[..., None] + G * torch.arange(K + 1)  # [..., K + 1]
-    flat = ops.frame.reshape(B, -1)
-    src_lane = (lane & ~(G - 1)) + ((c + 1) & (G - 1))  # the shuffle's source
+    ty = (r * ops.step + ops.off + dy - margin).clamp(0, Hp - T)
+    tx = (col.clamp(max=n_cols - 1) * ops.step + ops.off + dx - margin).clamp(0, Wp - T)
+    return _WarpGrid(G, K, r, col, c, lane & ~(G - 1), col < n_cols, win,
+                     c[..., None] + G * torch.arange(K + 1), ty, tx, fy, fx)
 
-    def load_row(i):
-        in_tile = (slot_col <= w) & (i <= w)
-        idx = (ty + i)[..., None] * Wp + tx[..., None] + slot_col.clamp(max=w)
-        v = torch.gather(flat, 1, idx.reshape(B, -1)).reshape(idx.shape)
-        return torch.where(in_tile, v, torch.zeros((), dtype=v.dtype))
 
-    def right_neighbours(v):
-        offered = torch.where((c == 0)[..., None], v[..., 1:], v[..., :K])
-        src = src_lane.expand(offered.shape[:-1])[..., None].expand(offered.shape)
-        return torch.gather(offered, 4, src)
+def _warp_load_row(ops: ShiftOperands, g: _WarpGrid, i: int, last: int):
+    """Tile row ``i`` into every lane's slots ``[B, ..., K + 1]``: the slot's
+    column where the row and the column are at most ``last``, else 0."""
+    B, _, Wp = ops.frame.shape
+    in_tile = (g.slot_col <= last) & (i <= last)
+    idx = (g.ty + i)[..., None] * Wp + g.tx[..., None] + g.slot_col.clamp(max=last)
+    v = torch.gather(ops.frame.reshape(B, -1), 1, idx.reshape(B, -1)).reshape(idx.shape)
+    return torch.where(in_tile, v, torch.zeros((), dtype=v.dtype))
 
+
+def _warp_right_at(g: _WarpGrid, v: torch.Tensor, d: int) -> torch.Tensor:
+    """Column ``j + d`` of each slot's column ``j`` by the kernels' shuffle:
+    from the group's lane ``(c + d) & (G - 1)``, every lane ``c < d``
+    offering its next slot in place of its own."""
+    K = g.K
+    offered = torch.where((g.c < d)[..., None], v[..., 1:], v[..., :K])
+    src = (g.group + ((g.c + d) & (g.G - 1))).expand(offered.shape[:-1])
+    return torch.gather(offered, 4, src[..., None].expand(offered.shape))
+
+
+def _warp_store(out, writes, val, idx, ok) -> None:
+    """Scatter ``val[ok]`` to ``out`` at ``idx[ok]`` and count the writes."""
+    idx = idx.expand(val.shape)[ok.expand(val.shape)]
+    out.view(-1)[idx] = val[ok.expand(val.shape)]
+    writes += torch.bincount(idx, minlength=writes.numel())
+
+
+def _check_writes(name: str, writes: torch.Tensor) -> None:
+    if not bool((writes == 1).all()):
+        raise RuntimeError(f"{name}: an output element is written "
+                           f"{int(writes.min())}..{int(writes.max())} times")
+
+
+def warp_window_steps(ops: ShiftOperands, wind_size: int,
+                      packed: bool = False) -> torch.Tensor:
+    """The bilinear windows by the steps of ``csrc/shift_windows.cu`` (and,
+    on the frame rounded to bfloat16, of ``csrc/shift_windows_phases.cu``),
+    with tensor ops: the lane map of ``_warp_grid`` (reach 1); the warp
+    walks the tile rows, each loaded once and carried to the next step as
+    the row above; a slot's right neighbour comes from the group's lane
+    ``(c + 1) & (G - 1)``, whose lane 0 offers its next slot.  Blended in
+    ``blend_corners``' order and scattered to ``[B, N, w, w]`` (``packed``:
+    ``[B, n_rows, w, Lp]``, the last window of a row repeated into the
+    tail); raises unless every output element is written exactly once.  A
+    model of the kernel's index arithmetic for the CPU tests: no path of
+    the package calls it."""
+    w = wind_size
+    g = _warp_grid(ops, w, reach=1, margin=0)
+    K = g.K
+    B = ops.frame.shape[0]
+    n_rows, n_cols = ops.n_rows, ops.n_cols
+    gx, gy = 1.0 - g.fx, 1.0 - g.fy
+    w11, w21, w12, w22 = gx * gy, g.fx * gy, gx * g.fy, g.fx * g.fy
+    copy = (g.fy == 0.0) | (g.fx == 0.0)
     if packed:
         Lp = packed_width(n_cols, w)
         out = torch.zeros(B, n_rows, w, Lp)
-        copies = torch.where(col == n_cols - 1, Lp // w - n_cols + 1, 1)
+        copies = torch.where(g.col == n_cols - 1, Lp // w - n_cols + 1, 1)
     else:
         out = torch.zeros(B, n_rows * n_cols, w, w)
-        copies = torch.ones_like(col)
+        copies = torch.ones_like(g.col)
     writes = torch.zeros(out.numel(), dtype=torch.int64)
     b_idx = torch.arange(B).reshape(B, 1, 1, 1, 1, 1)
-    top = load_row(0)
-    top_right = right_neighbours(top)
+    top = _warp_load_row(ops, g, 0, w)
+    top_right = _warp_right_at(g, top, 1)
     for i in range(w):
-        below = load_row(i + 1)
-        below_right = right_neighbours(below)
+        below = _warp_load_row(ops, g, i + 1, w)
+        below_right = _warp_right_at(g, below, 1)
         t11, t21, t12, t22 = top[..., :K], top_right, below[..., :K], below_right
         e = (Ellipsis, None)
         acc = t11 * w11[e]
@@ -274,22 +325,70 @@ def warp_window_steps(ops: ShiftOperands, wind_size: int,
         acc = acc + t12 * w12[e]
         acc = acc + t22 * w22[e]
         val = torch.where(copy[e], t11, acc)
-        j = slot_col[..., :K]
-        store = (live[..., None] & (j < w))
+        j = g.slot_col[..., :K]
+        store = (g.live[..., None] & (j < w))
         for q in range(int(copies.max())):
             ok = store & (q < copies)[..., None]
             if packed:
-                idx = (((b_idx * n_rows + r[..., None]) * w + i) * out.shape[-1]
-                       + col[..., None] * w + q * w + j)
+                idx = (((b_idx * n_rows + g.r[..., None]) * w + i) * out.shape[-1]
+                       + g.col[..., None] * w + q * w + j)
             else:
-                idx = ((b_idx * n_rows * n_cols + win[..., None]) * w + i) * w + j
-            idx = idx.expand(val.shape)[ok.expand(val.shape)]
-            out.view(-1)[idx] = val[ok.expand(val.shape)]
-            writes += torch.bincount(idx, minlength=writes.numel())
+                idx = ((b_idx * n_rows * n_cols + g.win[..., None]) * w + i) * w + j
+            _warp_store(out, writes, val, idx, ok)
         top, top_right = below, below_right
-    if not bool((writes == 1).all()):
-        raise RuntimeError("warp_window_steps: an output element is written "
-                           f"{int(writes.min())}..{int(writes.max())} times")
+    _check_writes("warp_window_steps", writes)
+    return out
+
+
+def warp_bicubic_steps(ops: ShiftOperands, wind_size: int) -> torch.Tensor:
+    """The bicubic windows by the steps of ``csrc/shift_windows_bicubic.cu``,
+    with tensor ops, on ``ShiftOperands`` made with ``interp="bicubic"``:
+    the lane map of ``_warp_grid`` with reach 3 (the group's first three
+    lanes hold the tile's last columns in their extra slot where the main
+    slots do not reach ``w + 2``); the warp walks the ``w + 3`` tile rows
+    the stencil reads, each loaded once; columns ``j + 1 .. j + 3`` come by
+    three shuffles a slot, past the group's end from the extra or next slot
+    that the partner lane offers; the horizontal sum ``h`` of each tile row
+    and column is formed once, in the plain version's order, into a ring of
+    four rows indexed by the tile row modulo 4; when tile row ``i + 3``
+    arrives, output row ``i`` is the vertical sum of the ring's four rows,
+    oldest first, scattered to ``[B, N, w, w]``.  Raises unless every output
+    element is written exactly once.  A model of the kernel's index
+    arithmetic for the CPU tests: no path of the package calls it."""
+    w = wind_size
+    last = w + 2  # the last tile row and column the stencil reads
+    g = _warp_grid(ops, w, reach=3, margin=1)
+    K = g.K
+    B = ops.frame.shape[0]
+    n_win = ops.n_rows * ops.n_cols
+    e = (Ellipsis, None)
+    wy = [t[e] for t in cubic_weights(g.fy)]
+    wx = [t[e] for t in cubic_weights(g.fx)]
+
+    def taps(wt, a, b, c, d):  # (((0 + w0 a) + w1 b) + w2 c) + w3 d
+        acc = torch.zeros_like(a) + wt[0] * a
+        acc = acc + wt[1] * b
+        acc = acc + wt[2] * c
+        return acc + wt[3] * d
+
+    out = torch.zeros(B, n_win, w, w)
+    writes = torch.zeros(out.numel(), dtype=torch.int64)
+    b_idx = torch.arange(B).reshape(B, 1, 1, 1, 1, 1)
+    j = g.slot_col[..., :K]
+    store = g.live[..., None] & (j < w)
+    ring = [None] * 4  # ring[tr & 3]: the horizontal sums of tile row tr
+    for tr in range(last + 1):
+        v = _warp_load_row(ops, g, tr, last)
+        n1, n2, n3 = (_warp_right_at(g, v, d) for d in (1, 2, 3))
+        ring[tr & 3] = taps(wx, v[..., :K], n1, n2, n3)
+        if tr < 3:
+            continue
+        i = tr - 3
+        val = taps(wy, ring[(tr + 1) & 3], ring[(tr + 2) & 3],
+                   ring[(tr + 3) & 3], ring[tr & 3])
+        idx = ((b_idx * n_win + g.win[..., None]) * w + i) * w + j
+        _warp_store(out, writes, val, idx, store)
+    _check_writes("warp_bicubic_steps", writes)
     return out
 
 
