@@ -8,9 +8,9 @@ Phases, each failing loudly:
 1. environment: torch/CUDA versions, the card's name and power limit, TF32
    off;
 2. build every CUDA kernel of the package from its sources, and print what
-   the compiler made of each instance of the two pass-fusion kernels and
-   of the window shifts and the deformation (registers a thread, shared
-   memory a block; no instance may spill);
+   the compiler made of each instance of the two pass-fusion kernels, of
+   the window shifts, the deformation and the peak fit (registers a
+   thread, shared memory a block; no instance may spill);
 3. each kernel (bilinear and bicubic window shift, the four bilinear shift
    variants, window deformation, fused peak fit, correlate-and-fit, whole
    pass) against its plain PyTorch
@@ -29,6 +29,10 @@ Phases, each failing loudly:
    the redesign (``EARLIER_MS``); every shift
    variant also against the ``rolls`` kernel (bit-equal on 8-bit frames)
    and on a float-valued frame, where the bfloat16 variants must differ;
+   the shift wrappers' device times (queued behind a spin kernel, so the
+   host's pace does not enter) and peak memory side by side (``"bf16"``,
+   which reads the float32 frame, within ``MARGIN_MS`` of ``rolls`` by the
+   medians of five rounds timed in turns);
 4. the first path: ``OfflinePIV`` over 8 synthetic 2048x2048 BMP pairs with
    a uniform displacement, 64 px windows, 32 px overlap, 2-pass CWS; checks
    the recovered displacement, the valid share and the kernel launch
@@ -79,6 +83,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -111,25 +116,33 @@ EARLIER_MS = {"correlate_peakfit": {"pass2": 2.213, "pass1": 1.827},
               "shift_windows": {"pass2": 0.268},
               "def_windows": {"pass2": 0.432, "bicubic": 0.787},
               "shift_windows_bicubic": {"pass2": 0.456},
-              "shift_windows_phases": {"pass2": 0.349}}
+              "shift_windows_phases": {"pass2": 0.349},
+              "peakfit": {"pass2": 0.244, "pass1": 0.204},
+              "shift_windows_bf16": {"pass2": 0.224}}
 # a redesign must beat its earlier reading by more than this, and at most
 # this share of its yardstick's time at pass 2 (the unfused chain; a
 # shift's or a deformation's grid_sample)
 MARGIN_MS = 0.02
 YARDSTICK_SHARE = {"correlate_peakfit": 0.4, "fused_piv_pass": 0.4}
-# what the redesigns of the resampling kernels aim at, ms at pass 2 on the
-# random maps (printed, not checked: a miss must still beat EARLIER_MS)
+# what the redesigns aim at, ms (the resampling kernels at pass 2 on the
+# random maps; printed, not checked: a miss must still beat EARLIER_MS)
 TARGET_MS = {"shift_windows": {"pass2": 0.18},
              "def_windows": {"pass2": 0.25, "bicubic": 0.55},
              "shift_windows_bicubic": {"pass2": 0.22},
-             "shift_windows_phases": {"pass2": 0.17}}
+             "shift_windows_phases": {"pass2": 0.17},
+             "peakfit": {"pass2": 0.13, "pass1": 0.13},
+             "shift_windows_bf16": {"pass2": 0.18}}
 # the most that the "phases" wrapper may allocate above its inputs at pass
 # 2: the padded float32 frame, its bfloat16 cast and pad, the windows (no
 # phase table)
 PHASES_PEAK_BYTES = 450e6
-# the engines' device ms a batch of 4 (profile) that this script read on an
-# NVIDIA H100 80GB HBM3 at 700 W before the resampling kernels' redesign
-EARLIER_DEVICE_MS = {"CWS": 12.884, "DEF peakfit=pallas": 8.095}
+# the engines' device ms a batch of 4 (``phase_profile``) read on an NVIDIA
+# H100 80GB HBM3 at 700 W before the last redesign of the kernels each
+# engine runs: CWS by this script before shift_windows'; DEF
+# peakfit=pallas and CWS shift_variant=bf16 by tools/engine_turns_cuda.py
+# (the median of four) before peakfit's and shift_windows_bf16's
+EARLIER_DEVICE_MS = {"CWS": 12.884, "DEF peakfit=pallas": 7.700,
+                     "CWS shift_variant=bf16": 12.872}
 SMOOTH_SLOPE = 0.002  # px/px of the smooth maps' gradient
 FUSED_SHAPES = (("pass2", (32, 16), False), ("pass1", (64, 32), True),
                 ("w16", (16, 8), False), ("w128", (128, 64), True))
@@ -164,6 +177,34 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int = 20) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls, enqueued behind a
+    spin kernel so that the card never waits for the host: a wrapper of
+    several short launches is then timed by the card alone, not by how fast
+    a shared host dispatches it.  The spin grows until the host has queued
+    every call before it ends."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    while True:
+        spin = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * spin.elapsed_time(start):
+            return start.elapsed_time(end) / reps
+        check(cycles < 2_000_000_000, f"the host took {host_ms} ms to queue {reps} calls")
+        cycles *= 4
+
+
 def phase_environment() -> str:
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}")
@@ -184,7 +225,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _build.build()
     log(f"build: {_build.sources()} in {time.perf_counter() - t0:.2f} s")
-    from torchpiv_tpu_torch.kernels import deform, shift
+    from torchpiv_tpu_torch.kernels import deform, peakfit, shift
     from torchpiv_tpu_torch.kernels.corrfit import describe
 
     for name in ("corrfit", "fused_pass"):
@@ -196,11 +237,18 @@ def phase_build() -> None:
     # shifts), per interpolation (DEF)
     for name, widths in (("shift_windows", (16, 32, 64, 96, 128)),
                          ("shift_windows_bicubic", (16, 32, 64, 96, 125)),
-                         ("shift_windows_phases", (16, 32, 64, 96, 128))):
+                         ("shift_windows_phases", (16, 32, 64, 96, 128)),
+                         ("shift_windows_bf16", (16, 32, 64, 96, 128))):
         for w in widths:
             info = shift.describe(w, name)
             log(f"instance {name} w{w}: {json.dumps(info)}")
             check(info["local_bytes"] == 0, f"{name} w{w} spills: {info}")
+    # the peak fit: a warp a map, in registers up to 32 px, in chunks up to
+    # 128; a block a map above
+    for d in (4, 8, 16, 32, 64, 128, 200):
+        info = peakfit.describe(d)
+        log(f"instance peakfit d{d}: {json.dumps(info)}")
+        check(info["local_bytes"] == 0, f"peakfit d{d} spills: {info}")
     for interp in ("bilinear", "bicubic"):
         for w, M in ((32, 2), (120, 1)):
             info = deform.describe(w, M, interp)
@@ -357,7 +405,8 @@ def phase_shift_variants(frames: torch.Tensor) -> list:
     """The four bilinear shift variants against their plain versions and the
     ``rolls`` kernel at the pass-2 shape; times beside ``rolls`` and
     ``grid_sample`` in the same run."""
-    from torchpiv_tpu_torch.kernels.shift import (VARIANT_WRAPPERS, launch,
+    from torchpiv_tpu_torch.kernels.shift import (BF16_FRAME_VARIANTS,
+                                                  VARIANT_WRAPPERS, launch,
                                                   launch_variant, shift_windows,
                                                   variant_frame)
     from torchpiv_tpu_torch.ops.shifts import (BF16_VARIANTS,
@@ -376,6 +425,8 @@ def phase_shift_variants(frames: torch.Tensor) -> list:
     vx, vy = cases["fractional"]
     ops = shift_operands(frames, vx, vy, **kw)
     rolls_ms = cuda_ms(lambda: launch(ops, w))
+    wrappers = {"rolls": wrapper_time_and_peak(
+        lambda: shift_windows(frames, vx, vy, **kw))}
     grid = shift_grid(ops, w)
     img = ops.frame[:, None]
     library_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(
@@ -418,14 +469,9 @@ def phase_shift_variants(frames: torch.Tensor) -> list:
         vframe = variant_frame(ops, variant)
         ms = cuda_ms(lambda: launch_variant(ops, w, variant, S, frame=vframe))
         cast_ms = cuda_ms(lambda: variant_frame(ops, variant))
-        wrapper_ms = cuda_ms(lambda: shift_windows(frames, vx, vy, variant=variant, **kw))
+        wrapper_ms, peak = wrappers[variant] = wrapper_time_and_peak(
+            lambda: shift_windows(frames, vx, vy, variant=variant, **kw))
         plain_ms = cuda_ms(lambda: blend_reference_variant(ops, w, variant), reps=5)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        shift_windows(frames, vx, vy, variant=variant, **kw)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - held
         extra = dict(wrapper_ms=wrapper_ms, frame_prepare_ms=cast_ms,
                      shift_windows_ms=rolls_ms, peak_bytes_above_inputs=peak,
                      shape=[B, Hp, Wp, n, w])
@@ -433,8 +479,10 @@ def phase_shift_variants(frames: torch.Tensor) -> list:
             check(peak < PHASES_PEAK_BYTES,
                   f"{name} allocates {peak} bytes above its inputs")
         # each input read once, each output written once: the frame in the
-        # type the kernel reads, four maps, the windows
-        n_bytes = B * (Hp * Wp * (2 if rounds else 4) + n * 4 * 4 + n * w * w * 4)
+        # type the kernel reads (bf16 rounds the float32 frame as it loads
+        # it), four maps, the windows
+        n_bytes = B * (Hp * Wp * (2 if variant in BF16_FRAME_VARIANTS else 4)
+                       + n * 4 * 4 + n * w * w * 4)
         n_flops = B * n * w * w * 7
         n_bf16 = 0.0
         if variant == "mxu":  # two banded selection products a window:
@@ -449,7 +497,34 @@ def phase_shift_variants(frames: torch.Tensor) -> list:
             f"torchpiv_tpu/experimental/shift_variants.py:{VARIANT_LINES[variant]}",
             max_err, ms, plain_ms, n_bytes, n_flops, library_ms,
             n_bf16_flops=n_bf16, **extra))
+    log("shift wrappers at pass 2 (pad, split, frame, kernel): " + ", ".join(
+        f"{v} {t:.4f} ms, {pk} B above its inputs" for v, (t, pk) in wrappers.items()))
+    # the two wrappers differ only in their kernel: timed in turns, five
+    # rounds each, and held to each other by their medians
+    turns = {"rolls": [], "bf16": []}
+    for _ in range(5):
+        for v in turns:
+            turns[v].append(queued_ms(
+                lambda: shift_windows(frames, vx, vy, variant=v, **kw)))
+    med = {v: statistics.median(t) for v, t in turns.items()}
+    log("rolls and bf16 wrappers in turns: " + ", ".join(
+        f"{v} {t!r} ms (median {med[v]:.4f})" for v, t in turns.items()))
+    check(med["bf16"] <= med["rolls"] + MARGIN_MS,
+          f"the bf16 wrapper ({med['bf16']} ms) is not within {MARGIN_MS} ms "
+          f"of the rolls wrapper ({med['rolls']} ms)")
     return rows
+
+
+def wrapper_time_and_peak(fn) -> tuple:
+    """``(ms, bytes)``: ``fn``'s device time (``queued_ms``) and the most it
+    allocates above what is held before it."""
+    ms = queued_ms(fn)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return ms, torch.cuda.max_memory_allocated() - held
 
 
 def def_grid(ops, w: int) -> torch.Tensor:
@@ -640,14 +715,17 @@ def phase_peakfit_kernel(frames_a: torch.Tensor, frames_b: torch.Tensor) -> dict
             real, True, 1.2, 3, min_subtract=True), reps=5)
         n_maps = real.shape[0]
         n_bytes = n_maps * (w * w * 4 + 9)
-        # a sample: min, subtract, add, compare for the maximum; offset,
-        # division, round, two compares and a max for the second peak
-        n_flops = n_maps * w * w * 15
+        # a sample: minimum, compare and two selects for the first maximum,
+        # maximum for the second peak (at w > 32 one more, the chunk's);
+        # the exclusion test, about 12, on the 2 * 3 + 3 rows that can hold
+        # the exclusion set (validation_window 3)
+        n_flops = n_maps * (w * w * (5 if w <= 32 else 6) + 12 * 9 * w)
         bound_ms, bound_by = roofline(n_bytes, n_flops)
         passes[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, n_bytes=n_bytes, n_flops=n_flops,
-                             shape=list(real.shape))
+                             shape=list(real.shape), library_ms=None)
         del real, maps
+    compare_with_earlier("peakfit", passes)
     p2, p1 = passes["pass2"], passes["pass1"]
     # no single PyTorch call computes the fit: library_ms stays null
     return kernel_row(
@@ -1651,14 +1729,18 @@ def main() -> int:
                                  peakfit="pallas")
         def_ms = def_prof["ms_pair"]
         log(f"DEF engine (peakfit=pallas): {def_prof['device_ms']:.3f} ms of device time "
-            f"a batch of {BATCH}; {EARLIER_DEVICE_MS['DEF peakfit=pallas']} ms before the "
-            f"resampling kernels' redesign")
+            f"a batch of {BATCH} (peakfit {kernel_ms(def_prof, 'peakfit'):.3f} ms); "
+            f"{EARLIER_DEVICE_MS['DEF peakfit=pallas']} ms before the peak fit's "
+            f"redesign")
         log(f"DEF path: engine {def_ms:.3f} ms/pair with peakfit=pallas, "
             f"{xla_ms:.3f} with peakfit=xla; busy share "
             f"{def_ms * def_pairs_per_s / 1e3:.3f}")
         bf16 = phase_profile(uniform, "CWS shift_variant=bf16", shift_variant="bf16")
         log(f"CWS shift_variant=bf16: engine {bf16['ms_batch']:.3f} ms per batch "
-            f"(rolls {cws['ms_batch']:.3f}), busy share "
+            f"(rolls {cws['ms_batch']:.3f}), {bf16['device_ms']:.3f} ms of device time "
+            f"(rolls {cws['device_ms']:.3f}; "
+            f"{EARLIER_DEVICE_MS['CWS shift_variant=bf16']} ms before the bf16 shift's "
+            f"redesign), busy share "
             f"{bf16['ms_pair'] * variant_runs['pairs_per_s'] / 1e3:.3f}")
         robust = phase_profile(rough, "robust", frame_mask=wall_mask(),
                                shift_variant="phases", **ROBUST)

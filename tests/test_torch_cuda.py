@@ -37,6 +37,7 @@ from torchpiv_tpu_torch.config import (MAX_BICUBIC_WIND, MAX_DEF_TILE,
 from torchpiv_tpu_torch.kernels.deform import def_windows
 from torchpiv_tpu_torch.kernels.deform import describe as def_describe
 from torchpiv_tpu_torch.kernels.fused_pass import fused_piv_pass
+from torchpiv_tpu_torch.kernels.peakfit import describe as peakfit_describe
 from torchpiv_tpu_torch.kernels.peakfit import peakfit
 from torchpiv_tpu_torch.kernels.shift import (VARIANT_WRAPPERS, shift_windows,
                                               shift_windows_bicubic)
@@ -47,8 +48,10 @@ from torchpiv_tpu_torch.ops.correlate import correlate_fft
 from torchpiv_tpu_torch.ops.deform import (BLOCK_WINDOWS, STAGES, block_geometry,
                                            def_windows_reference)
 from torchpiv_tpu_torch.ops.packing import pack_windows
-from torchpiv_tpu_torch.ops.peakfit import correlation_to_displacement
-from torchpiv_tpu_torch.ops.shifts import shift_windows_reference, warp_lanes
+from torchpiv_tpu_torch.ops.peakfit import (correlation_to_displacement,
+                                            warp_fit_plan)
+from torchpiv_tpu_torch.ops.shifts import (blend_reference_variant, shift_operands,
+                                           shift_windows_reference, warp_lanes)
 from torchpiv_tpu_torch.ops.windows import extract_windows
 from torchpiv_tpu_torch.utils.synthetic import particle_pair, shear_flow
 
@@ -147,6 +150,65 @@ def test_variant_kernel_matches_plain_version_and_rolls(card, variant, shape, w,
     else:  # the frame was rounded to bfloat16
         assert not torch.equal(got, rolls)
     assert torch.equal(wrapper(frames[0], vx[0], vy[0], **kw), got[0])
+
+
+def _smooth_maps(n_rows, n_cols, batch, w, g):
+    """Shifts like a CWS pass 2: one offset plus a slow gradient, so that
+    neighbouring windows share their integer part."""
+    r = torch.arange(n_rows, dtype=torch.float32)[:, None]
+    c = torch.arange(n_cols, dtype=torch.float32)[None, :]
+    base = torch.rand(batch, 2, generator=g) * w - w / 2
+    vx = base[:, :1] + (0.02 * (r + c)).reshape(1, -1)
+    vy = base[:, 1:] + (0.02 * (r - c)).reshape(1, -1)
+    return vx, vy
+
+
+@pytest.mark.parametrize("values", ["uint8", "float", "ties"])
+@pytest.mark.parametrize("kind", ["integer", "fractional", "mixed", "smooth"])
+@pytest.mark.parametrize("w", [4, 16, 32, 33, 64, 128])
+def test_bf16_kernel_rounds_as_it_loads(card, w, kind, values):
+    """The ``"bf16"`` kernel reads the padded float32 frame itself and
+    rounds each sample to bfloat16 as it loads it: bit for bit its plain
+    version (which rounds the frame first) on random, integer, mixed and
+    smooth maps, on 8-bit, float-valued and tie-laden frames, and the
+    ``rolls`` kernel on 8-bit frames."""
+    o = w // 2
+    per_block = 8 * (32 // min(32, 1 << (w - 1).bit_length()))
+    shape = _ragged_shape(w, o, per_block)
+    H, W = shape
+    n_rows, n_cols = (H - w) // (w - o) + 1, (W - w) // (w - o) + 1
+    g = torch.Generator().manual_seed(w + 7)
+    frames = torch.rand(3, H, W, generator=g) * 255
+    if values == "uint8":
+        frames = frames.round()
+    elif values == "ties":  # exact half-way points between bfloat16 numbers
+        frames = frames.round() + torch.where(torch.rand(3, H, W, generator=g) < 0.5,
+                                              0.5, -0.0)
+    frames = frames.to(card)
+    if kind == "smooth":
+        vx, vy = _smooth_maps(n_rows, n_cols, 3, w, g)
+    else:
+        vx = torch.rand(3, n_rows * n_cols, generator=g) * 3 * w - 1.5 * w
+        vy = torch.rand(3, n_rows * n_cols, generator=g) * 3 * w - 1.5 * w
+        if kind == "integer":
+            vx, vy = vx.round(), vy.round()
+        elif kind == "mixed":
+            vx = vx.round()
+    vx, vy = vx.to(card), vy.to(card)
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o)
+    wrapper = VARIANT_WRAPPERS["bf16"]
+    before = wrapper.launches
+    got = wrapper(frames, vx, vy, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    ops = shift_operands(frames, vx, vy, **kw)
+    want = blend_reference_variant(ops, w, "bf16")
+    assert torch.equal(got, want)
+    rolls = shift_windows(frames, vx, vy, **kw)
+    if values == "uint8":
+        assert torch.equal(got, rolls)
+    else:
+        assert not torch.equal(got, rolls)
 
 
 # every width the bicubic kernel serves differently: several windows a warp
@@ -260,10 +322,11 @@ def test_shift_kernel_does_not_spill(card, w):
 
 
 @pytest.mark.parametrize("w", [1, 3, 4, 16, 31, 32, 33, 64, 96, 125, 128])
-@pytest.mark.parametrize("name", ["shift_windows_bicubic", "shift_windows_phases"])
+@pytest.mark.parametrize("name", ["shift_windows_bicubic", "shift_windows_phases",
+                                  "shift_windows_bf16"])
 def test_warp_shift_kernels_do_not_spill(card, name, w):
-    """Every instance of the two kernels on warp_lanes.cuh's map: no spill,
-    no shared memory, and the windows a block of the lane map."""
+    """Every instance of the kernels on warp_lanes.cuh's map: no spill, no
+    shared memory, and the windows a block of the lane map."""
     limit = MAX_BICUBIC_WIND if name == "shift_windows_bicubic" else MAX_SHIFT_WIND
     if w > limit:
         with pytest.raises(ValueError, match="wind_size"):
@@ -341,6 +404,87 @@ def test_peakfit_kernel_exclusion_window(card, window):
     _, _, ki = peakfit(maps, True, 1.1, window, min_subtract=True)
     _, _, pi = correlation_to_displacement(maps, True, 1.1, window, min_subtract=True)
     assert torch.equal(ki, pi)
+
+
+def _fit_cases(d, vw, seed=0):
+    """Maps for the peak fit at every size: random ones, peaks on every edge
+    and corner, within vw rows of an edge, second peaks at the edge of the
+    exclusion set, a tie, constant maps and maps that hold a NaN."""
+    g = torch.Generator().manual_seed(seed * 1000 + d * 10 + vw)
+    near = min(vw, d - 1)
+    maps = [torch.rand(4, d, d, generator=g)]
+    for r, c in sorted({(0, 0), (0, d - 1), (d - 1, 0), (d - 1, d - 1), (near, near),
+                        (d - 1 - near, d - 1 - near), (near, d - 1), (d // 2, d // 2)}):
+        m = torch.rand(1, d, d, generator=g) * 0.3
+        m[0, r, c] = 1.0
+        maps.append(m)
+    for off in (vw, vw + 1):
+        m = torch.rand(1, d, d, generator=g) * 0.1
+        m[0, d // 2, d // 2] = 1.0
+        m[0, min(d // 2 + off, d - 1), d // 2] = 0.95
+        maps.append(m)
+    tie = torch.rand(1, d * d, generator=g) * 0.5
+    tie[0, [min(d + 1, d * d - 2), d * d - 2]] = 1.0
+    maps += [tie.reshape(1, d, d), torch.full((1, d, d), 0.25), torch.zeros(1, d, d)]
+    for where in (0, d * d // 2, d * d - 1):
+        m = torch.rand(1, d * d, generator=g)
+        m[0, where] = float("nan")
+        maps.append(m.reshape(1, d, d))
+    return torch.cat(maps)
+
+
+def _pedestal(maps):
+    """Raw maps with an offset and one pedestal pixel below all others, half
+    the map from the peak: no sample that the fit reads lies within 2 of the
+    minimum (see the module docstring)."""
+    flat = maps.reshape(len(maps), -1).clone()
+    kd = flat.shape[1]
+    peak = torch.nan_to_num(flat, nan=-1.0).argmax(dim=1)
+    low = torch.nan_to_num(flat, nan=2.0).amin(dim=1)
+    flat[torch.arange(len(flat)), (peak + kd // 2) % kd] = low - 1.0
+    return flat.reshape(maps.shape) * 40.0 - 7.0
+
+
+@pytest.mark.parametrize("min_subtract", [False, True])
+@pytest.mark.parametrize("vw", [0, 3, 5])
+@pytest.mark.parametrize("d", [4, 5, 12, 16, 23, 32, 33, 48, 64, 100, 128])
+def test_peakfit_kernel_every_instance(card, d, vw, min_subtract):
+    """Every instance of the warp kernel (the map in registers up to 32 px,
+    in chunks up to 128; ragged sizes too): ``u, v`` within 1e-5 px of the
+    plain version, NaN maps at exactly 0, masks equal."""
+    maps = _fit_cases(d, vw)
+    if min_subtract:
+        maps = _pedestal(maps)
+    maps = maps.to(card).contiguous()
+    before = peakfit.launches
+    ku, kv, ki = peakfit(maps, True, 1.2, vw, min_subtract=min_subtract)
+    pu, pv, pi = correlation_to_displacement(maps, True, 1.2, vw,
+                                             min_subtract=min_subtract)
+    torch.cuda.synchronize()
+    assert peakfit.launches == before + 1
+    torch.testing.assert_close(ku, pu, rtol=0, atol=1e-5)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=1e-5)
+    assert torch.equal(ki, pi)
+    nan = torch.isnan(maps).flatten(1).any(dim=1)
+    assert nan.any() and not bool(ku[nan].any() or kv[nan].any())
+
+
+@pytest.mark.parametrize("d", [1, 4, 5, 8, 11, 12, 16, 22, 23, 32, 33, 64, 65, 128,
+                               129, 200, 238])
+def test_peakfit_kernel_does_not_spill(card, d):
+    """Every instance: no spill, the register budget of its launch bounds,
+    four maps a block of 128 threads up to 128 px, a block a map above."""
+    info = peakfit_describe(d)
+    assert info["local_bytes"] == 0 and info["threads"] == 128
+    if d > 128:
+        assert info["windows"] == 1 and 0 < info["registers"] <= 32
+        assert info["shared_bytes"] >= d * d * 4
+        return
+    ch, maxc = warp_fit_plan(d)
+    assert info["windows"] == 4 and info["shared_bytes"] == 0
+    # min_blocks of csrc/peakfit.cu: 8, 6 or 4 blocks of 128 threads an SM
+    budget = 64 if maxc == 1 and ch < 32 else 80 if maxc <= 16 else 128
+    assert 0 < info["registers"] <= budget
 
 
 def _assert_fit_agrees(got, want):

@@ -360,7 +360,8 @@ def test_depth_tool_edits_the_committed_sources():
     spec = importlib.util.spec_from_file_location("warp_shift_depth_cuda", path)
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    assert set(tool.DEPTHS) == {"shift_windows_bicubic", "shift_windows_phases"}
+    assert set(tool.DEPTHS) == {"shift_windows_bicubic", "shift_windows_phases",
+                                "shift_windows_bf16"}
     for name, depths in tool.DEPTHS.items():
         committed = (_build.CSRC / f"{name}.cu").read_text()
         assert int(tool.AHEAD.search(committed).group(1)) in depths

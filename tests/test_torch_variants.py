@@ -17,13 +17,15 @@ import torch
 from torchpiv_tpu.kernels.shift_pallas import shift_windows_pallas
 from torchpiv_tpu_torch.kernels import KERNELS
 from torchpiv_tpu_torch.kernels import shift as shift_module
-from torchpiv_tpu_torch.kernels.shift import shift_windows, variant_frame
+from torchpiv_tpu_torch.kernels.shift import (BF16_FRAME_VARIANTS, shift_windows,
+                                              variant_frame)
 from torchpiv_tpu_torch.ops.shifts import (BF16_VARIANTS, VARIANTS,
                                            ShiftOperands,
                                            blend_reference_variant,
                                            gather_tiles, mxu_tile_steps,
                                            shift_operands,
-                                           shift_windows_reference)
+                                           shift_windows_reference,
+                                           warp_window_steps)
 
 NEW = [v for v in VARIANTS if v != "rolls"]
 
@@ -157,9 +159,11 @@ def test_unknown_variant_raises():
 
 @pytest.mark.parametrize("variant", NEW)
 def test_variant_frame_layout(variant):
-    """What the kernels' vector loads need of the frame the wrapper hands
-    them: the type, a row pitch in whole 16-byte pieces with room past the
-    last tile, zeros in the pad and the frame itself untouched."""
+    """What the kernels' loads need of the frame the wrapper hands them:
+    for ``"bf16"`` the padded float32 frame itself, no copy (its kernel
+    rounds each sample as it loads it); else the type, a row pitch in whole
+    16-byte pieces with room past the last tile, zeros in the pad and the
+    frame itself untouched."""
     shape, w, o = (64, 91), 16, 8  # an odd padded width
     n = ((64 - w) // (w - o) + 1) * ((91 - w) // (w - o) + 1)
     frame = torch.from_numpy(np.random.default_rng(3).uniform(0, 255, shape)
@@ -168,7 +172,12 @@ def test_variant_frame_layout(variant):
     ops = shift_operands(frame, z, z, frame_shape=shape, wind_size=w, overlap=o)
     Wp = ops.frame.shape[-1]
     got = variant_frame(ops, variant)
-    if variant in BF16_VARIANTS:
+    if variant == "bf16":
+        assert got.dtype == torch.float32 and got.shape == ops.frame.shape
+        assert got.data_ptr() == ops.frame.data_ptr() and got.is_contiguous()
+        assert got.stride() == ops.frame.stride()
+        return
+    if variant in BF16_FRAME_VARIANTS:
         assert got.dtype == torch.bfloat16
         assert got.shape[-1] % 8 == 0 and got.shape[-1] >= Wp + 2
         assert torch.equal(got[..., :Wp], ops.frame.to(torch.bfloat16))
@@ -177,6 +186,50 @@ def test_variant_frame_layout(variant):
         assert got.shape[-1] % 4 == 0 and got.shape[-1] >= Wp + 4
         assert torch.equal(got[..., :Wp], ops.frame)
     assert got.is_contiguous() and not got[..., Wp:].any()
+
+
+def _round_bf16_bits(x: np.ndarray) -> np.ndarray:
+    """Float32 rounded to bfloat16 and widened back by the bits, as the
+    ``"bf16"`` kernel's ``__float2bfloat16_rn`` does for finite samples:
+    round to nearest, ties to the even upper half."""
+    b = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    b = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
+    return b.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["integer", "fractional", "mixed"])
+def test_rounding_as_loaded_equals_the_bf16_plain_version(kind):
+    """The ``"bf16"`` kernel reads the float32 frame and rounds each sample
+    as it loads it; the warp steps on samples rounded so equal
+    ``blend_reference_variant(..., "bf16")``, which rounds the padded frame
+    first, on a frame of exact bfloat16 half-way points (both ways of the
+    tie), large values, negative zeros and values just off a tie."""
+    shape, w, o = (64, 96), 16, 8
+    frame, vx, vy = _case(shape, w, o, kind, seed=21, values="float")
+    rng = np.random.default_rng(22)
+    one = np.float32(1.0)
+    special = np.array([
+        one + np.float32(2 ** -8), one + np.float32(3 * 2 ** -8),  # ties: down, up
+        np.float32(255.5), np.float32(254.5), np.float32(-128.25),
+        np.float32(1e30), np.float32(-3.0e29), np.float32(65504.0 + 128.0),
+        np.float32(-0.0), np.float32(0.0),
+        np.nextafter(one + np.float32(2 ** -8), np.float32(2)),  # past a tie: up
+        np.nextafter(one + np.float32(2 ** -8), np.float32(0))], np.float32)
+    frame.flat[rng.choice(frame.size, frame.size // 3, replace=False)] = \
+        special[rng.integers(0, len(special), frame.size // 3)]
+    bits = _round_bf16_bits(frame)
+    torch_rounded = torch.from_numpy(frame).to(torch.bfloat16).float().numpy()
+    assert np.array_equal(bits.view(np.uint32), torch_rounded.view(np.uint32))
+    assert np.signbit(bits[frame == 0]).tolist() == np.signbit(frame[frame == 0]).tolist()
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o)
+    ops = shift_operands(*(torch.from_numpy(a)[None] for a in (frame, vx, vy)), **kw)
+    as_loaded = ops._replace(frame=torch.from_numpy(
+        _round_bf16_bits(ops.frame.numpy())))
+    want = blend_reference_variant(ops, w, "bf16")
+    assert torch.equal(warp_window_steps(as_loaded, w), want)
+    assert torch.equal(shift_windows(*(torch.from_numpy(a) for a in (frame, vx, vy)),
+                                     variant="bf16", **kw), want[0])
+    assert not torch.equal(want, blend_reference_variant(ops, w, "rolls"))
 
 
 # tile origins with every remainder modulo 8, and at the frame's far edges

@@ -8,19 +8,21 @@ A checkout is a directory holding ``chip_smoke.py`` and
 ``torchpiv_tpu_torch/`` (for example the parent commit unpacked by ``git
 archive`` into a directory that ``.gitignore`` lists).  Each turn builds
 that checkout's kernels and profiles, twice each, one batch of 4 pairs of
-2048² frames through three engines (w64/o32, 2 passes) with its own
+2048² frames through five engines (w64/o32, 2 passes) with its own
 ``chip_smoke.phase_profile``: ``CWS`` (the main path), ``CWS bicubic``
-(``cws_interp="bicubic"``, sheared pairs) and ``robust`` (the robust
+(``cws_interp="bicubic"``, sheared pairs), ``robust`` (the robust
 configuration with ``shift_variant="phases"``, corrupted pairs and the wall
-mask).  The pairs are written once, by this checkout's ``chip_smoke.py``,
-into a temporary directory that every turn reads.  Two calls may land on
-two cards: compare the two checkouts only within one run of this tool.
+mask), ``DEF peakfit=pallas`` (sheared pairs, the fused peak fit) and ``CWS
+bf16`` (``shift_variant="bf16"``).  The pairs are written once, by this
+checkout's ``chip_smoke.py``, into a temporary directory that every turn
+reads.  Two calls may land on two cards: compare the two checkouts only
+within one run of this tool.
 
 Prints the card's name and power limit first, then one line a turn and
 engine (device ms a batch from ``torch.profiler``, the share of the window
-shifts in it, the engine's ms a batch by CUDA events and its peak device
-memory), then a JSON line of the medians by checkout and engine.  Exits
-with 1 without a card.
+shifts and of the peak fit in it, the engine's ms a batch by CUDA events
+and its peak device memory), then a JSON line of the medians by checkout
+and engine.  Exits with 1 without a card.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from pathlib import Path
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-ENGINES = ("CWS", "CWS bicubic", "robust")
+ENGINES = ("CWS", "CWS bicubic", "robust", "DEF peakfit=pallas", "CWS bf16")
 
 
 def write_pairs(folder: str) -> None:
@@ -64,7 +66,10 @@ def turn(tree: str, folder: str) -> dict:
     configs = {"CWS": ("uniform", {}),
                "CWS bicubic": ("shear", {"cws_interp": "bicubic"}),
                "robust": ("rough", {"frame_mask": cs.wall_mask(),
-                                    "shift_variant": "phases", **cs.ROBUST})}
+                                    "shift_variant": "phases", **cs.ROBUST}),
+               "DEF peakfit=pallas": ("shear", {"multipass_mode": "DEF",
+                                                "peakfit": "pallas"}),
+               "CWS bf16": ("uniform", {"shift_variant": "bf16"})}
     out = {}
     for _ in range(2):
         for engine in ENGINES:
@@ -74,7 +79,9 @@ def turn(tree: str, folder: str) -> dict:
                 "device_ms": p["device_ms"], "ms_batch": p["ms_batch"],
                 "peak_bytes": p["peak_bytes"],
                 "shift_ms": sum(t for k, t in p["kernels"].items()
-                                if "shift_windows" in k or "phase_table" in k)})
+                                if "shift_windows" in k or "phase_table" in k),
+                "peakfit_ms": sum(t for k, t in p["kernels"].items()
+                                  if "peakfit" in k)})
     return out
 
 
@@ -100,7 +107,8 @@ def main() -> int:
                 for p in profiles:
                     readings[tree][engine].append(p)
                     print(f"{tree} {engine}: device {p['device_ms']:.3f} ms a batch "
-                          f"(window shifts {p['shift_ms']:.3f}), engine "
+                          f"(window shifts {p['shift_ms']:.3f}, peak fit "
+                          f"{p['peakfit_ms']:.3f}), engine "
                           f"{p['ms_batch']:.3f} ms, peak {p['peak_bytes']} B", flush=True)
     print(json.dumps({tree: {e: statistics.median(p["device_ms"] for p in ps)
                              for e, ps in by_engine.items()}

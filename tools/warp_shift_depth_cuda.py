@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""How many tile rows the two window shifts on ``csrc/warp_lanes.cuh``'s
-lane map should load at a time, on one card: edited copies of
-``csrc/shift_windows_bicubic.cu`` and ``csrc/shift_windows_phases.cu`` with
-other ``rows_ahead`` for one column a lane (w <= 32, the instance of the
-main paths), built and timed beside the committed ones, as
+"""How many tile rows the window shifts on ``csrc/warp_lanes.cuh``'s lane
+map should load at a time, on one card: edited copies of
+``csrc/shift_windows_bicubic.cu``, ``csrc/shift_windows_phases.cu`` and
+``csrc/shift_windows_bf16.cu`` with other ``rows_ahead`` for one column a
+lane (w <= 32, the instance of the main paths), built and timed beside the
+committed ones, as
 ``tools/shift_anatomy_cuda.py`` does for the bilinear shift (whose helpers
 it uses).
 
@@ -53,7 +54,8 @@ _spec.loader.exec_module(base)
 
 FRAME, BATCH, W, O, S = (2048, 2048), 4, 32, 16, 16
 DEPTHS = {"shift_windows_bicubic": (4, 8, 12, 16),
-          "shift_windows_phases": (4, 6, 7, 8)}
+          "shift_windows_phases": (4, 6, 7, 8),
+          "shift_windows_bf16": (4, 6, 7, 8)}
 AHEAD = re.compile(r"constexpr int rows_ahead\(\) \{ return K == 1 \? (\d+) : 4; \}")
 
 
@@ -105,12 +107,13 @@ def measure(frames: torch.Tensor) -> list:
     kw = dict(frame_shape=FRAME, wind_size=W, overlap=O)
     cubic = shift_operands(frames, vx, vy, interp="bicubic", **kw)
     linear = shift_operands(frames, vx, vy, **kw)
-    vframe = variant_frame(linear, "phases")
+    vframe = {v: variant_frame(linear, v) for v in ("phases", "bf16")}
     runs = {"shift_windows_bicubic": (lambda: launch(cubic, W, "bicubic"),
-                                      blend_reference_bicubic(cubic, W)),
-            "shift_windows_phases": (lambda: launch_variant(linear, W, "phases", S,
-                                                            frame=vframe),
-                                     blend_reference_variant(linear, W, "phases"))}
+                                      blend_reference_bicubic(cubic, W))}
+    for v in vframe:
+        runs[f"shift_windows_{v}"] = (
+            lambda v=v: launch_variant(linear, W, v, S, frame=vframe[v]),
+            blend_reference_variant(linear, W, v))
     rows = []
     for (name, depth), (copy, ptxas) in build().items():
         fn, plain = runs[name]

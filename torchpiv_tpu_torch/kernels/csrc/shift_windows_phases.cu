@@ -30,8 +30,9 @@
 // 3.35 TB/s.
 //
 // What the design does about the bound: shift_windows.cu's, with the lane
-// map of warp_lanes.cuh (reach 1).  A warp owns a window; the warp walks
-// the w + 1 tile rows, each one coalesced 2-byte `__ldg` a slot widened to
+// map of warp_lanes.cuh (reach 1), in warp_bilinear.cuh's body, which
+// shift_windows_bf16.cu shares: a warp owns a window; the warp walks the
+// w + 1 tile rows, each one coalesced 2-byte `__ldg` a slot widened to
 // float32 (`__bfloat162float`), `rows_ahead` rows before their first
 // store; the right neighbour comes by one shuffle a slot; the blend is
 // shift.cuh's `blend_corners`, and each output row one coalesced streaming
@@ -40,8 +41,7 @@
 // The blend is shift.cuh's: the result matches the plain version to the
 // last bit.
 
-#include "shift.cuh"
-#include "warp_lanes.cuh"
+#include "warp_bilinear.cuh"
 
 namespace {
 
@@ -69,53 +69,8 @@ shift_windows_phases_kernel(const __nv_bfloat16* __restrict__ frame,
                             float* __restrict__ out,
                             int Hp, int Wp, int pitch, int n_rows, int n_cols,
                             int w, int step, int off, int lg) {
-  const int G = 1 << lg;
-  const int lane = threadIdx.x & 31;
-  const int c = lane & (G - 1);  // the lane's first column
-  const int r = blockIdx.y;      // grid row of the block's windows
-  const int b = blockIdx.z;      // frame of the batch
-  const int col = ((blockIdx.x * kWarps + (threadIdx.x >> 5)) << (5 - lg)) +
-                  (lane >> lg);  // grid column of the group's window
-  const bool live = col < n_cols;  // a ragged row's last groups only load
-  const int64_t wi = ((int64_t)b * n_rows + r) * n_cols + min(col, n_cols - 1);
-  const int T = w + 1;
-
-  const int ty = min(max(r * step + off + dy[wi], 0), Hp - T);
-  const int tx = min(max(min(col, n_cols - 1) * step + off + dx[wi], 0), Wp - T);
-  const __nv_bfloat16* src = frame + ((int64_t)b * Hp + ty) * pitch + tx;
-  const piv::Blend blend = piv::blend_weights(fy[wi], fx[wi]);
-  float* dst = out + wi * w * w;
-
-  float top[K + 1], top_right[K];
-  piv::warp::load_row<K>(src, pitch, 0, c, G, w, top);
-  piv::warp::right_at<K>(top, c, G, 1, top_right);
-  constexpr int kRows = rows_ahead<K>();
-  for (int i0 = 0; i0 < w; i0 += kRows) {
-    float below[kRows][K + 1];
-#pragma unroll
-    for (int u = 0; u < kRows; ++u)
-      piv::warp::load_row<K>(src, pitch, i0 + u + 1, c, G, w, below[u]);
-#pragma unroll
-    for (int u = 0; u < kRows; ++u) {
-      const int i = i0 + u;  // output row: tile rows i and i + 1
-      if (i >= w) break;     // the same for the whole warp
-      float below_right[K];
-      piv::warp::right_at<K>(below[u], c, G, 1, below_right);
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int j = c + G * k;
-        const float val = piv::blend_corners(top[k], top_right[k], below[u][k],
-                                             below_right[k], blend);
-        if (live && j < w) __stcs(dst + i * w + j, val);
-      }
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        top[k] = below[u][k];
-        top_right[k] = below_right[k];
-      }
-      top[K] = below[u][K];
-    }
-  }
+  piv::warp::bilinear_windows<K, rows_ahead<K>()>(
+      frame, dy, dx, fy, fx, out, Hp, Wp, pitch, n_rows, n_cols, w, step, off, lg);
 }
 
 template <int K>
@@ -123,26 +78,17 @@ int launch(const __nv_bfloat16* frame, const int* dy, const int* dx,
            const float* fy, const float* fx, float* out, int B, int Hp, int Wp,
            int pitch, int n_rows, int n_cols, int w, int step, int off,
            const Lanes& l, cudaStream_t stream) {
-  const int per_block = kWarps * l.P;  // windows a block
-  dim3 grid((n_cols + per_block - 1) / per_block, n_rows, B);
-  shift_windows_phases_kernel<K><<<grid, kWarps * 32, 0, stream>>>(
-      frame, dy, dx, fy, fx, out, Hp, Wp, pitch, n_rows, n_cols, w, step, off,
-      l.lg);
+  shift_windows_phases_kernel<K>
+      <<<piv::warp::bilinear_grid(B, n_rows, n_cols, l), kWarps * 32, 0, stream>>>(
+          frame, dy, dx, fy, fx, out, Hp, Wp, pitch, n_rows, n_cols, w, step, off,
+          l.lg);
   return (int)cudaGetLastError();
 }
 
 template <int K>
 int describe(const Lanes& l, int* out) {
-  cudaFuncAttributes attr;
-  const cudaError_t e =
-      cudaFuncGetAttributes(&attr, shift_windows_phases_kernel<K>);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = (int)attr.sharedSizeBytes;
-  out[3] = kWarps * 32;
-  out[4] = kWarps * l.P;
-  return 0;
+  return piv::warp::describe_bilinear(shift_windows_phases_kernel<K>,
+                                      l, out);
 }
 
 constexpr int kReach = 1;  // tile columns the blend reads past the window

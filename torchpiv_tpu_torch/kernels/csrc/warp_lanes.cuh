@@ -1,7 +1,8 @@
 // The lane map of a window kept in a warp's registers, shared by the
-// redesigned window shifts shift_windows_bicubic.cu and
-// shift_windows_phases.cu (shift_windows.cu has its own copy, which its
-// anatomy tool edits by text).
+// redesigned window shifts shift_windows_bicubic.cu and, through
+// warp_bilinear.cuh, shift_windows_phases.cu and shift_windows_bf16.cu
+// (shift_windows.cu has its own copy, which its anatomy tool edits by
+// text).
 //
 // A window belongs to a group of G lanes (G a power of two).  Lane c of
 // the group holds the tile columns c, c + G, ..., c + G*(K-1) in slots
@@ -24,6 +25,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace piv {
 namespace warp {
@@ -53,6 +56,12 @@ inline Lanes lanes_for(int w, int reach) {
   return l;
 }
 
+// A float32 frame element that is read as the nearest bfloat16 (round to
+// nearest even, as torch's `.to(torch.bfloat16)`), widened back.
+struct RoundedF32 {
+  float value;
+};
+
 // One element of a frame row as float32: a float32 frame's own value, a
 // bfloat16 frame's value widened exactly.
 __device__ __forceinline__ float load_float(const float* p) { return __ldg(p); }
@@ -60,18 +69,38 @@ __device__ __forceinline__ float load_float(const __nv_bfloat16* p) {
   const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
   return __bfloat162float(__ushort_as_bfloat16(bits));
 }
+// x rounded to bfloat16 and widened back
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 // Tile row `row` into slots 0..K of lane c: column c + G*k where the row
 // and the column are at most `last` (the last the stencil reads), else 0.
+// A RoundedF32 row is rounded two slots an instruction (`cvt.rn.bf16x2`).
 template <int K, typename T>
 __device__ __forceinline__ void load_row(const T* __restrict__ src, int pitch,
                                          int row, int c, int G, int last,
                                          float (&v)[K + 1]) {
   const T* p = src + (int64_t)row * pitch + c;
+  if constexpr (std::is_same<T, RoundedF32>::value) {
 #pragma unroll
-  for (int k = 0; k <= K; ++k) {
-    const bool in_tile = row <= last && c + G * k <= last;
-    v[k] = in_tile ? load_float(p + G * k) : 0.0f;
+    for (int k = 0; k <= K; ++k) {
+      const bool in_tile = row <= last && c + G * k <= last;
+      v[k] = in_tile ? __ldg(&p[G * k].value) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k + 1 <= K; k += 2) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[k], v[k + 1]);
+      v[k] = __low2float(h);
+      v[k + 1] = __high2float(h);
+    }
+    if (K % 2 == 0) v[K] = round_bf16(v[K]);
+  } else {
+#pragma unroll
+    for (int k = 0; k <= K; ++k) {
+      const bool in_tile = row <= last && c + G * k <= last;
+      v[k] = in_tile ? load_float(p + G * k) : 0.0f;
+    }
   }
 }
 

@@ -4,17 +4,21 @@ the port of ``correlation_to_displacement_pallas``.
 For CPU tensors it runs the plain PyTorch version
 (``ops.peakfit.correlation_to_displacement``); for CUDA tensors it launches
 the kernel on the current stream or raises.  ``peakfit.launches`` counts
-launches.
+launches.  ``describe`` reports what the compiler made of the kernel's
+instance for a map size: a warp a map up to 128 px (the map in registers
+up to 32 px, in chunks beyond), a block a map above.
 
 The kernel adds ``EPS`` after subtracting the map's minimum, as the TPU
 kernel does; the plain version adds ``EPS - min`` in one step (see
 ``ops/peakfit.py``).  The results are equal unless a sample that the fit
-reads lies within about 2 of the minimum.
+reads lies within about 2 of the minimum.  Up to 128 px a map that holds
+a NaN fits as in the plain version (its first NaN is the peak, u = v = 0);
+the block instance for larger maps passes NaN samples over.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -22,6 +26,15 @@ from ..ops.peakfit import correlation_to_displacement
 from . import _build
 
 MAX_MAP_BYTES = 227 * 1024  # one map sits in a block's shared memory
+
+
+def describe(d: int) -> Dict[str, int]:
+    """What the compiler made of the kernel's instance for ``d x d`` maps
+    (``_build.describe``): registers, local bytes, shared bytes, threads and
+    maps (``windows``) a block."""
+    if d < 1 or d * d * 4 > MAX_MAP_BYTES:
+        raise ValueError(f"peakfit: no instance for {d} px maps")
+    return _build.describe("peakfit", d)
 
 
 def launch(corr: torch.Tensor, validate: bool, val_ratio: float,

@@ -11,13 +11,16 @@ variant never steps down to another kernel or to the plain version.
 (``variant="rolls"``), ``shift_windows_bicubic.launches`` those of the
 bicubic one, and ``shift_windows_<variant>.launches`` those of a variant.
 
-The bilinear kernel, the bicubic one and ``"phases"`` keep a window in a
-warp's registers (a tile row a coalesced load, neighbours by shuffle, no
-shared memory); ``describe`` reports what the compiler made of each of
-their instances.  The variants take what the TPU wrapper takes for them:
-bilinear only, no ``packed`` output, float32 output.  ``"bf16"``, ``"mxu"``
-and ``"phases"`` read the padded frame cast to bfloat16 (round to nearest
-even, after the flat-wrap pad); ``"lanephases"`` reads it in float32.
+The bilinear kernel, the bicubic one, ``"bf16"`` and ``"phases"`` keep a
+window in a warp's registers (a tile row a coalesced load, neighbours by
+shuffle, no shared memory); ``describe`` reports what the compiler made of
+each of their instances.  The variants take what the TPU wrapper takes for
+them: bilinear only, no ``packed`` output, float32 output.  ``"bf16"``,
+``"mxu"`` and ``"phases"`` compute on the padded frame rounded to bfloat16
+(round to nearest even, after the flat-wrap pad): ``"mxu"`` and
+``"phases"`` read a bfloat16 copy of it (``BF16_FRAME_VARIANTS``),
+``"bf16"`` reads the float32 frame itself and rounds each sample as it
+loads it.  ``"lanephases"`` reads the float32 frame on a padded pitch.
 
 ``packed=True`` (bilinear only) writes the lane-packed layout of the JAX
 package's pass-fusion kernels (``ops/packing.py``) straight from the kernel.
@@ -32,9 +35,8 @@ import torch
 
 from ..config import MAX_BICUBIC_WIND, MAX_SHIFT_WIND
 from ..ops.packing import pack_windows, packed_width
-from ..ops.shifts import (BF16_VARIANTS, VARIANTS, ShiftOperands,
-                          blend_reference_bicubic, blend_reference_variant,
-                          shift_operands)
+from ..ops.shifts import (VARIANTS, ShiftOperands, blend_reference_bicubic,
+                          blend_reference_variant, shift_operands)
 from . import _build
 
 # the limits of the TPU kernels, kept so that both engines take the same
@@ -43,7 +45,10 @@ MAX_WIND = {"bilinear": MAX_SHIFT_WIND, "bicubic": MAX_BICUBIC_WIND}
 # the kernels with a ``<name>_describe`` entry, and the widths they take
 DESCRIBED = {"shift_windows": MAX_SHIFT_WIND,
              "shift_windows_bicubic": MAX_BICUBIC_WIND,
+             "shift_windows_bf16": MAX_SHIFT_WIND,
              "shift_windows_phases": MAX_SHIFT_WIND}
+# the variants whose kernel reads a bfloat16 copy of the padded frame
+BF16_FRAME_VARIANTS = ("mxu", "phases")
 
 
 def describe(wind_size: int, name: str = "shift_windows") -> Dict[str, int]:
@@ -92,17 +97,20 @@ def launch(ops: ShiftOperands, wind_size: int, interp: str = "bilinear",
 
 
 def variant_frame(ops: ShiftOperands, variant: str) -> torch.Tensor:
-    """The frame a variant's kernel reads: ``ops.frame`` with its rows
-    padded with zeros to the pitch the kernel's vector loads need (the
+    """The frame a variant's kernel reads: for ``"bf16"`` ``ops.frame``
+    itself (the kernel rounds as it loads); else ``ops.frame`` with its
+    rows padded with zeros to the pitch the kernel's vector loads need (the
     clamps keep every tile inside the unpadded width), in bfloat16 for
-    ``BF16_VARIANTS``."""
+    ``BF16_FRAME_VARIANTS``."""
+    if variant == "bf16":
+        return ops.frame.contiguous()
     Wp = ops.frame.shape[-1]
-    if variant in BF16_VARIANTS:
+    if variant in BF16_FRAME_VARIANTS:
         pitch = -(-(Wp + 2) // 8) * 8
     else:
         pitch = -(-(Wp + 4) // 4) * 4
     frame = ops.frame
-    if variant in BF16_VARIANTS:  # zeros pad alike before and after the cast
+    if variant in BF16_FRAME_VARIANTS:  # zeros pad alike before and after the cast
         frame = frame.to(torch.bfloat16)
     return torch.nn.functional.pad(frame, (0, pitch - Wp)).contiguous()
 
@@ -211,8 +219,9 @@ def shift_windows_bicubic(frame, vel_x, vel_y, **kw) -> torch.Tensor:
 
 
 def shift_windows_bf16(frame, vel_x, vel_y, **kw) -> torch.Tensor:
-    """``shift_windows`` with ``variant="bf16"``: the half-width-data kernel
-    under its own name and launch count."""
+    """``shift_windows`` with ``variant="bf16"``: the window shift of the
+    frame rounded to bfloat16, a window in a warp's registers, under its
+    own name and launch count."""
     return shift_windows(frame, vel_x, vel_y, variant="bf16", **kw)
 
 

@@ -25,12 +25,19 @@ package: with ``min_subtract`` the XLA fit, and so this function, adds
 ``|min| >= 2``, while the fused kernels compute ``(x - min) + EPS``.  The two
 agree unless a sample that the fit reads lies within about 2 of the map's
 minimum (a blank window).
+
+``warp_fit_steps`` replays the CUDA kernel's own steps on the CPU (which
+lane holds which sample, the shuffle reductions, the band of rows that the
+second-peak exclusion is tested on), for the tests.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 EPS = 1e-7
+WARP_FIT_MAX = 128  # csrc/peakfit.cu: a warp a map up to this side
 
 
 def correlation_to_displacement(
@@ -146,3 +153,157 @@ def correlation_to_displacement(
         return u, v, invalid
     u2, v2, _, _ = fit_at(torch.argmax(masked, dim=-1))
     return u, v, invalid, (u2, v2)
+
+
+def warp_fit_plan(d: int) -> Tuple[int, int]:
+    """``(CH, MAXC)`` of ``csrc/peakfit.cu``'s warp instance for ``d x d``
+    maps: ``CH`` slots a chunk, at most ``MAXC`` chunks (1: the map stays in
+    registers); up to ``d = 32`` the least power of two with ``32 * CH >=
+    d * d``."""
+    if not 1 <= d <= WARP_FIT_MAX:
+        raise ValueError(f"no warp instance for {d} px maps (1..{WARP_FIT_MAX})")
+    if d > 32:
+        return (8, 16) if d <= 64 else (16, 32)
+    ch = 1
+    while 32 * ch < d * d:
+        ch *= 2
+    return ch, 1
+
+
+def _xor_reduce(vals, combine):
+    """``vals`` (tensors ``[..., 32]``, one value a lane) by the kernel's
+    shuffle-xor butterfly, offsets 16 down to 1: every lane ends with the
+    result of ``combine(mine, partner's)``."""
+    lane = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        vals = combine(vals, [v[..., lane ^ o] for v in vals])
+    return vals
+
+
+def _first_max(mine, other):
+    """The larger value, the lesser flat index on a tie (NaN never wins)."""
+    (v, i), (ov, oi) = mine, other
+    take = (ov > v) | ((ov == v) & (oi < i))
+    return [torch.where(take, ov, v), torch.where(take, oi, i)]
+
+
+def warp_fit_steps(
+    corr: torch.Tensor,
+    validate: bool = True,
+    val_ratio: float = 1.2,
+    validation_window: int = 3,
+    min_subtract: bool = False,
+):
+    """``correlation_to_displacement`` (gauss3, ``[N, d, d]`` maps up to
+    ``WARP_FIT_MAX``) by the steps of ``csrc/peakfit.cu``'s warp kernel,
+    with tensor ops: lane ``l`` holds samples ``l + 32 s`` (slots ``s``,
+    ``-inf`` past the map); the first walk over the slots in order keeps a
+    NaN-propagating minimum, the first strict maximum and each chunk's
+    maximum; shuffle-xor reductions (the lesser index on a tie); a map with
+    a NaN takes its first NaN as the peak and fits to 0; the five samples
+    of the fit, one a lane, each ``(x - min) + EPS``; the second walk skips
+    chunks (``MAXC > 1``) and slots that miss the rows within ``vw + 1`` of
+    the peak's, taking their maxima whole, and tests exclusion on the rest.
+    Raises if an excluded sample lies outside that band.  A model of the
+    kernel's index arithmetic for the CPU tests: no path of the package
+    calls it."""
+    n, d, k = corr.shape
+    if d != k:
+        raise ValueError(f"square maps only, not {tuple(corr.shape)}")
+    ch, maxc = warp_fit_plan(d)
+    kd = d * k
+    vw = validation_window
+    nc = -(-kd // (32 * ch))
+    flat = corr.reshape(n, kd).to(torch.float32)
+    lane = torch.arange(32)
+    pos = lane[None, :] + 32 * torch.arange(nc * ch)[:, None]  # [slot, lane]
+    inside = pos < kd
+    neg_inf = torch.tensor(-torch.inf)
+    val = torch.where(inside, flat[:, pos.clamp(max=kd - 1)], neg_inf)  # [n, slot, lane]
+
+    mn = torch.full((n, 32), torch.inf)
+    best = torch.full((n, 32), -torch.inf)
+    best_slot = torch.full((n, 32), -1)
+    cmax = torch.full((n, nc, 32), -torch.inf)
+    for s in range(nc * ch):
+        c = val[:, s]
+        mn = torch.where(inside[s], torch.minimum(mn, c), mn)  # min.NaN
+        up = c > best
+        best = torch.where(up, c, best)
+        best_slot = torch.where(up, s, best_slot)
+        cmax[:, s // ch] = torch.fmax(cmax[:, s // ch], c)
+    m = torch.where(best_slot < 0, kd, lane + 32 * best_slot)
+    (mn,) = _xor_reduce([mn], lambda a, b: [torch.minimum(a[0], b[0])])
+    best, m = _xor_reduce([best, m], _first_max)
+    mn, m = mn[:, 0], m[:, 0]
+    nan = torch.isnan(mn)
+    # a map with a NaN: the lanes' strided walks for the first NaN, then min
+    first_nan = torch.where(torch.isnan(flat), torch.arange(kd), kd).amin(dim=1)
+    m = torch.where(m >= kd, 0, m)
+
+    def neighbours(mi):
+        return (torch.where(mi + 1 >= kd - 1, mi, mi + 1),
+                torch.where(mi - 1 <= 0, mi, mi - 1),
+                torch.where(mi + k >= kd - 1, mi, mi + k),
+                torch.where(mi - k <= 0, mi, mi - k))
+
+    def degenerate(mi):
+        left, right, top, bot = neighbours(mi)
+        return (left >= kd - 1) & (right <= 0) & (top >= kd - 1) & (bot <= 0)
+
+    def shifted(c):
+        return (c - mn[:, None]) + EPS if min_subtract else c + EPS
+
+    at = torch.stack([m, *neighbours(m)], dim=1)  # lanes 0..4
+    x = shifted(torch.gather(flat, 1, at))
+    lx = torch.log(x)
+    lcm = lx[:, 0]
+    # lane 0: gauss3 from lanes 1-2 (u), lane 1: from lanes 3-4 (v)
+    du = (lx[:, 2] - lx[:, 1]) / (2.0 * (lx[:, 1] + lx[:, 2]) - 4.0 * lcm)
+    dv = (lx[:, 4] - lx[:, 3]) / (2.0 * (lx[:, 3] + lx[:, 4]) - 4.0 * lcm)
+    u = torch.nan_to_num(torch.remainder(m, k).to(torch.float32) + du - (k // 2))
+    v = torch.nan_to_num(torch.div(m, d, rounding_mode="floor").to(torch.float32)
+                         + dv - (d // 2))
+    zero = torch.zeros(())
+    u = torch.where(nan, zero, u)
+    v = torch.where(nan, zero, v)
+    if not validate:
+        return u, v, None
+
+    row = torch.div(m, k, rounding_mode="floor")
+    band_lo = (row - vw - 1).clamp(min=0) * k
+    band_hi = (row + vw + 2).clamp(max=d) * k - 1
+    lo = (m - (vw + k * vw)) < 0
+    hi = (m + (vw + k * vw)) > kd - 1
+    inv_k = torch.tensor(1.0, dtype=torch.float32) / k
+
+    def excluded(p):  # p [n, ...] flat indices, m [n]
+        dd = p - m.reshape(n, *([1] * (p.dim() - 1)))
+        q = dd.to(torch.float32)
+        q = q * inv_k if k & (k - 1) == 0 else q / float(k)
+        j = torch.round(q).to(torch.int64)  # half to even, as rintf
+        e = (j.abs() <= vw) & ((dd - k * j).abs() <= vw)
+        lo_, hi_ = (t.reshape(n, *([1] * (p.dim() - 1))) for t in (lo, hi))
+        return e | ((p == 0) & lo_) | ((p == kd - 1) & hi_)
+
+    every = torch.arange(kd).expand(n, kd)
+    outside = (every < band_lo[:, None]) | (every > band_hi[:, None])
+    if bool((excluded(every) & outside)[~nan].any()):
+        raise RuntimeError("warp_fit_steps: an excluded sample lies outside the band")
+
+    c2 = torch.full((n, 32), -torch.inf)
+    chunk = 32 * ch
+    for j in range(nc):
+        read = torch.ones(n, dtype=torch.bool)
+        if maxc > 1:  # a chunk that misses the band gives its maximum whole
+            read = (band_hi >= j * chunk) & (band_lo < (j + 1) * chunk)
+            c2 = torch.where(read[:, None], c2, torch.fmax(c2, cmax[:, j]))
+        for s in range(j * ch, (j + 1) * ch):
+            misses = (32 * s + 31 < band_lo) | (32 * s > band_hi)
+            keep = misses[:, None] | ~excluded(pos[s].expand(n, 32))
+            c2 = torch.where(read[:, None] & keep, torch.fmax(c2, val[:, s]), c2)
+    (c2,) = _xor_reduce([c2], lambda a, b: [torch.fmax(a[0], b[0])])
+    c2 = torch.clamp(shifted(c2[:, :1])[:, 0], min=0.0)  # max.NaN: NaN kept
+    invalid = ((x[:, 0] / c2) < val_ratio) | degenerate(m)
+    invalid = torch.where(nan, degenerate(first_nan), invalid)
+    return u, v, invalid

@@ -286,7 +286,8 @@ def _check_writes(name: str, writes: torch.Tensor) -> None:
 def warp_window_steps(ops: ShiftOperands, wind_size: int,
                       packed: bool = False) -> torch.Tensor:
     """The bilinear windows by the steps of ``csrc/shift_windows.cu`` (and,
-    on the frame rounded to bfloat16, of ``csrc/shift_windows_phases.cu``),
+    on the frame rounded to bfloat16, of ``csrc/warp_bilinear.cuh``'s body
+    in ``shift_windows_phases.cu`` and ``shift_windows_bf16.cu``),
     with tensor ops: the lane map of ``_warp_grid`` (reach 1); the warp
     walks the tile rows, each loaded once and carried to the next step as
     the row above; a slot's right neighbour comes from the group's lane
@@ -393,7 +394,7 @@ def warp_bicubic_steps(ops: ShiftOperands, wind_size: int) -> torch.Tensor:
 
 
 VARIANTS = ("rolls", "bf16", "lanephases", "mxu", "phases")
-BF16_VARIANTS = ("bf16", "mxu", "phases")  # read a bfloat16 padded frame
+BF16_VARIANTS = ("bf16", "mxu", "phases")  # blend the frame rounded to bfloat16
 
 
 def blend_reference_variant(ops: ShiftOperands, wind_size: int,
