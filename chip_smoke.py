@@ -10,7 +10,8 @@ Phases, each failing loudly:
 2. build every CUDA kernel of the package from its sources, and print what
    the compiler made of each instance of the two pass-fusion kernels, of
    the window shifts, the deformation and the peak fit (registers a
-   thread, shared memory a block; no instance may spill);
+   thread, shared memory a block; no instance may spill); build the native
+   bulk decoder with ``g++`` (fails if it does not build);
 3. each kernel (bilinear and bicubic window shift, the four bilinear shift
    variants, window deformation, fused peak fit, correlate-and-fit, whole
    pass) against its plain PyTorch
@@ -32,7 +33,9 @@ Phases, each failing loudly:
    the shift wrappers' device times (queued behind a spin kernel, so the
    host's pace does not enter) and peak memory side by side (``"bf16"``,
    which reads the float32 frame, within ``MARGIN_MS`` of ``rolls`` by the
-   medians of five rounds timed in turns);
+   medians of five rounds timed in turns); every variant also timed on the
+   smooth maps, and ``"lanephases"`` beside the copy-engine ring it was
+   measured against (``tools/lanephases_ring_cuda.py``, bit-equal);
 4. the first path: ``OfflinePIV`` over 8 synthetic 2048x2048 BMP pairs with
    a uniform displacement, 64 px windows, 32 px overlap, 2-pass CWS; checks
    the recovered displacement, the valid share and the kernel launch
@@ -73,7 +76,10 @@ pipelined, pipelined, serial) over 64 pairs that are hard links to the 8
 uniform ones (decode runs for every pair, from the page cache), for CWS
 and ``fused="on"``, with bit-equal fields; one batch of ``background=
 "auto"`` over the rough pairs, bit-equal to frames cleaned on the host; one
-batch of ``preprocess="clahe"``.
+batch of ``preprocess="clahe"``.  Every ``OfflinePIV`` path prints the
+decoder it used.  After the turns: the native bulk decoder against the
+Python one over the same 64 linked pairs, in turns, CWS and ``fused="on"``:
+fields bit-equal, decode ms and the feeder's issue ms a batch.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -118,7 +124,8 @@ EARLIER_MS = {"correlate_peakfit": {"pass2": 2.213, "pass1": 1.827},
               "shift_windows_bicubic": {"pass2": 0.456},
               "shift_windows_phases": {"pass2": 0.349},
               "peakfit": {"pass2": 0.244, "pass1": 0.204},
-              "shift_windows_bf16": {"pass2": 0.224}}
+              "shift_windows_bf16": {"pass2": 0.224},
+              "shift_windows_lanephases": {"pass2": 0.271}}
 # a redesign must beat its earlier reading by more than this, and at most
 # this share of its yardstick's time at pass 2 (the unfused chain; a
 # shift's or a deformation's grid_sample)
@@ -131,7 +138,8 @@ TARGET_MS = {"shift_windows": {"pass2": 0.18},
              "shift_windows_bicubic": {"pass2": 0.22},
              "shift_windows_phases": {"pass2": 0.17},
              "peakfit": {"pass2": 0.13, "pass1": 0.13},
-             "shift_windows_bf16": {"pass2": 0.18}}
+             "shift_windows_bf16": {"pass2": 0.18},
+             "shift_windows_lanephases": {"pass2": 0.16}}
 # the most that the "phases" wrapper may allocate above its inputs at pass
 # 2: the padded float32 frame, its bfloat16 cast and pad, the windows (no
 # phase table)
@@ -149,6 +157,7 @@ FUSED_SHAPES = (("pass2", (32, 16), False), ("pass1", (64, 32), True),
 VARIANT_LINES = {"bf16": 29, "lanephases": 111, "mxu": 195, "phases": 294}
 CSRC = "torchpiv_tpu_torch/kernels/csrc/"
 ANATOMY = "tools/shift_anatomy_cuda.py"
+RING_TOOL = "tools/lanephases_ring_cuda.py"
 ANATOMY_ROW = "shift_anatomy_full"
 SPANS = ("decode_s", "pin_s", "h2d_ms", "load_s", "issue_s", "device_ms", "d2h_ms",
          "wait_s", "tail_s")
@@ -221,10 +230,14 @@ def phase_environment() -> str:
 
 def phase_build() -> None:
     from torchpiv_tpu_torch.kernels import _build
+    from torchpiv_tpu_torch.native import loader
 
     t0 = time.perf_counter()
     _build.build()
     log(f"build: {_build.sources()} in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    check(loader.available(), "the native decoder did not build (g++)")
+    log(f"native decoder: {loader.library_path()} in {time.perf_counter() - t0:.2f} s")
     from torchpiv_tpu_torch.kernels import deform, peakfit, shift
     from torchpiv_tpu_torch.kernels.corrfit import describe
 
@@ -238,7 +251,8 @@ def phase_build() -> None:
     for name, widths in (("shift_windows", (16, 32, 64, 96, 128)),
                          ("shift_windows_bicubic", (16, 32, 64, 96, 125)),
                          ("shift_windows_phases", (16, 32, 64, 96, 128)),
-                         ("shift_windows_bf16", (16, 32, 64, 96, 128))):
+                         ("shift_windows_bf16", (16, 32, 64, 96, 128)),
+                         ("shift_windows_lanephases", (16, 32, 64, 96, 128))):
         for w in widths:
             info = shift.describe(w, name)
             log(f"instance {name} w{w}: {json.dumps(info)}")
@@ -413,7 +427,7 @@ def phase_shift_variants(frames: torch.Tensor) -> list:
                                                blend_reference_variant,
                                                shift_operands)
 
-    w, o, S = 32, 16, 16
+    w, o = 32, 16
     n = window_count(w, o)
     dev = frames.device
     kw = dict(frame_shape=FRAME, wind_size=w, overlap=o)
@@ -467,14 +481,25 @@ def phase_shift_variants(frames: torch.Tensor) -> list:
         del got, want, plain_rolls, fops
 
         vframe = variant_frame(ops, variant)
-        ms = cuda_ms(lambda: launch_variant(ops, w, variant, S, frame=vframe))
+        ms = cuda_ms(lambda: launch_variant(ops, w, variant, frame=vframe))
+        smooth = shift_operands(frames, *(t.to(dev) for t in smooth_maps(w, o)), **kw)
+        sframe = variant_frame(smooth, variant)
+        smooth_ms = cuda_ms(lambda: launch_variant(smooth, w, variant, frame=sframe))
+        del smooth, sframe
         cast_ms = cuda_ms(lambda: variant_frame(ops, variant))
         wrapper_ms, peak = wrappers[variant] = wrapper_time_and_peak(
             lambda: shift_windows(frames, vx, vy, variant=variant, **kw))
         plain_ms = cuda_ms(lambda: blend_reference_variant(ops, w, variant), reps=5)
         extra = dict(wrapper_ms=wrapper_ms, frame_prepare_ms=cast_ms,
-                     shift_windows_ms=rolls_ms, peak_bytes_above_inputs=peak,
-                     shape=[B, Hp, Wp, n, w])
+                     shift_windows_ms=rolls_ms, smooth_ms=smooth_ms,
+                     peak_bytes_above_inputs=peak, shape=[B, Hp, Wp, n, w])
+        log(f"{name}: {ms:.4f} ms on the random maps, {smooth_ms:.4f} ms on the "
+            f"smooth ones")
+        if variant == "lanephases":  # the design it was measured against
+            extra["tma_ring_ms"] = ring = load_tool(RING_TOOL).ring_ms(
+                ops, w, blend_reference_variant(ops, w, variant))
+            log(f"{name}: the copy-engine ring of {RING_TOOL} "
+                f"{ring:.4f} ms on the random maps, bit-equal")
         if variant == "phases":  # no phase table
             check(peak < PHASES_PEAK_BYTES,
                   f"{name} allocates {peak} bytes above its inputs")
@@ -969,19 +994,25 @@ def phase_packed_shift(frames: torch.Tensor) -> None:
         f"{ms:.4f} ms per launch packed, {std_ms:.4f} ms standard")
 
 
+def load_tool(path: str):
+    """The module of the tool at ``path`` (relative to this script)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(os.path.basename(path))[0],
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), path))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
 def phase_shift_anatomy(frames: torch.Tensor) -> dict:
     """``tools/shift_anatomy_cuda.py``'s six modes of ``shift_windows`` at
     pass 2; returns the kernels line's row of its ``full`` mode (the
     counterpart of ``make_kernel``), with the launches of the tool's run."""
-    import importlib.util
-
     from torchpiv_tpu_torch.ops.shifts import blend_reference
 
-    spec = importlib.util.spec_from_file_location(
-        "shift_anatomy_cuda", os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                           ANATOMY))
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = load_tool(ANATOMY)
     ops = tool.operands(frames)
     modes = {r["mode"]: r for r in tool.measure(ops)}
     for mode in tool.EXACT:
@@ -1038,9 +1069,23 @@ def write_pairs(folder: str, n: int, displacement, seed: int) -> None:
         imwrite_gray(os.path.join(folder, f"p{i}_b.bmp"), fb)
 
 
+def decoder_of(piv) -> str:
+    """Which decoder ``piv``'s prefetcher runs: the native bulk decoder
+    where the dataset has a native shape, else the per-file Python one."""
+    if getattr(piv._dataset, "native_shape", None) is not None:
+        from torchpiv_tpu_torch.native import loader
+
+        return f"native ({loader.library_path().name})"
+    return "python (per file" + (", preprocess)" if not hasattr(
+        piv._dataset, "read_batch") else ")")
+
+
 def drive(piv, kernels):
     """Drain ``piv()`` with every launch count set to 0 just before and read
     just after; returns ``(fields, launches, pairs_per_s)``."""
+    ds = piv._dataset
+    folder = getattr(ds, "folder", None) or ds.dataset.folder  # under a preprocess
+    log(f"OfflinePIV over {os.path.basename(folder)}: decoder {decoder_of(piv)}")
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
@@ -1291,6 +1336,46 @@ def phase_serial_against_pipelined(folder: str) -> dict:
         span_report(f"{label}, {N_LINKED} linked pairs", piv.span_log, t0,
                     time.perf_counter() - t0)
         check(n == N_LINKED, f"{label}: {n} fields in the span run")
+    return out
+
+
+def phase_decoders(folder: str) -> dict:
+    """The native bulk decoder against the per-file Python one over the
+    ``N_LINKED`` linked pairs, in turns (native, Python, Python, native) on
+    one ``OfflinePIV`` instance a configuration, CWS and ``fused="on"``, run
+    once untimed first: the fields bit-equal, and each run's medians a
+    batch of the decode span (``decode_s``) and of the feeder's issue of
+    the engine (``issue_s``), host clock.  Returns ``{label: {decoder:
+    {"decode_ms": [..], "issue_ms": [..]}}}``; speed is reported, not
+    checked."""
+    from torchpiv_tpu_torch import OfflinePIV
+
+    out = {}
+    for label, options in (("CWS", {}), ("CWS fused=on", {"fused": "on"})):
+        piv = OfflinePIV(folder, wind_size=64, overlap=32, multipass=2,
+                         batch_size=BATCH, engine_options=options)
+        shape = piv._dataset.native_shape
+        check(shape is not None, f"{label}: the native decoder does not take the pairs")
+        want = list(piv())
+        runs = {kind: {"decode_ms": [], "issue_ms": []} for kind in ("native", "python")}
+        for kind in ("native", "python", "python", "native"):
+            piv._dataset.native_shape = shape if kind == "native" else None
+            piv.span_log = []
+            fields = list(piv())
+            check(len(fields) == N_LINKED, f"{label} {kind}: {len(fields)} fields")
+            same_fields(fields, want, f"{label}: {kind} decode")
+            for key, span in (("decode_ms", "decode_s"), ("issue_ms", "issue_s")):
+                runs[kind][key].append(
+                    float(np.median([b[span] for b in piv.span_log])) * 1e3)
+        piv._dataset.native_shape = shape
+        piv.span_log = None
+        out[label] = runs
+        log(json.dumps({"decoders": label, "pairs": N_LINKED, **runs}))
+        med = {k: {m: float(np.median(v)) for m, v in r.items()} for k, r in runs.items()}
+        log(f"{label}: decode {med['native']['decode_ms']:.1f} ms a batch of {BATCH} "
+            f"pairs native, {med['python']['decode_ms']:.1f} Python; the feeder's issue "
+            f"{med['native']['issue_ms']:.1f} / {med['python']['issue_ms']:.1f} ms a "
+            f"batch (medians of two runs each); fields bit-equal")
     return out
 
 
@@ -1707,6 +1792,7 @@ def main() -> int:
         del cws_fields
         log(f"paths done at {time.perf_counter() - t_start:.1f} s")
         phase_serial_against_pipelined(linked)
+        phase_decoders(linked)
         phase_background_preprocess(rough, uniform, tmp, KERNELS)
         log(f"pipeline phases done at {time.perf_counter() - t_start:.1f} s")
         cws = phase_profile(uniform, "CWS")

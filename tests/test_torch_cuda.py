@@ -211,6 +211,122 @@ def test_bf16_kernel_rounds_as_it_loads(card, w, kind, values):
         assert not torch.equal(got, rolls)
 
 
+# every lane map and plan of the TMA ring: 32 / G windows an item (1-16),
+# one to four columns a lane, a column past a lane's last slot (33, 65,
+# 97), fewer warps a block (64) and fewer stages (128)
+LANEPHASES_WIDTHS = (1, 2, 3, 4, 5, 7, 8, 12, 16, 17, 24, 31, 32, 33, 40, 48,
+                     63, 64, 65, 96, 97, 127, 128)
+
+
+@pytest.mark.parametrize("odd", [False, True], ids=["Wp4", "Wp_odd"])
+@pytest.mark.parametrize("kind", ["integer", "fractional", "mixed", "smooth"])
+@pytest.mark.parametrize("w", LANEPHASES_WIDTHS)
+def test_lanephases_kernel_every_instance(card, w, kind, odd):
+    """The TMA ring at every instance: bit for bit its plain version and
+    the ``rolls`` kernel, on a padded width that is a multiple of 4 (the
+    frame itself is the tensor map's) and on an odd one (a copy pitched to
+    the next multiple of 4), with windows clamped against every edge."""
+    o = w // 2
+    step = w - o
+    W = w + step * 2 * (32 // warp_lanes(w)[0] + 1)  # a ragged last item a row
+    Wp = W + 2 * max(w // 2, 1)  # the flat-wrap pad
+    W += (1 - Wp % 2) if odd else -Wp % 4
+    shape = (w + 2 * step + step - 1, W)
+    H = shape[0]
+    n_rows, n_cols = (H - w) // step + 1, (W - w) // step + 1
+    g = torch.Generator().manual_seed(1000 + w)
+    frames = (torch.rand(3, H, W, generator=g) * 255).to(card)
+    if kind == "smooth":
+        vx, vy = _smooth_maps(n_rows, n_cols, 3, w, g)
+    else:
+        vx = torch.rand(3, n_rows * n_cols, generator=g) * 3 * w - 1.5 * w
+        vy = torch.rand(3, n_rows * n_cols, generator=g) * 3 * w - 1.5 * w
+        if kind == "integer":
+            vx, vy = vx.round(), vy.round()
+        elif kind == "mixed":
+            vx = vx.round()
+    vx, vy = vx.to(card), vy.to(card)
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o)
+    ops = shift_operands(frames, vx, vy, **kw)
+    assert (ops.frame.shape[-1] % 4 == 0) != odd
+    wrapper = VARIANT_WRAPPERS["lanephases"]
+    before = wrapper.launches
+    got = wrapper(frames, vx, vy, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got, blend_reference_variant(ops, w, "lanephases"))
+    assert torch.equal(got, shift_windows(frames, vx, vy, **kw))
+
+
+def test_lanephases_reads_the_padded_frame_itself(card):
+    """The kernel reads the padded frame as it is, whatever its width: the
+    wrapper makes no copy of it (no pitch pad)."""
+    from torchpiv_tpu_torch.kernels.shift import variant_frame
+
+    for W in (256, 255):
+        frames = torch.rand(2, 256, W, device=card) * 255
+        n = 15 * ((W - 32) // 16 + 1)
+        z = torch.zeros(2, n, device=card)
+        ops = shift_operands(frames, z, z, frame_shape=(256, W), wind_size=32,
+                             overlap=16)
+        got = variant_frame(ops, "lanephases")
+        assert got.data_ptr() == ops.frame.data_ptr() and got.shape == ops.frame.shape
+
+
+@pytest.fixture(scope="module")
+def ring_tool():
+    """``tools/lanephases_ring_cuda.py`` and a built copy of the package's
+    sources whose ``shift_windows_lanephases.cu`` is the ring of
+    ``tools/lanephases_ring.cu`` (the design the kernel was measured
+    against)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = pathlib.Path(__file__).resolve().parents[1] / "tools"
+    spec = importlib.util.spec_from_file_location("lanephases_ring_cuda",
+                                                  root / "lanephases_ring_cuda.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    copy, _ = tool.build({"ring": tool.edited_copy(tool.ring_source(), "ring")})["ring"]
+    yield tool, copy
+    shutil.rmtree(copy)
+
+
+@pytest.mark.parametrize("kind", ["fractional", "mixed"])
+@pytest.mark.parametrize("w", [4, 16, 31, 32, 33, 64, 128])
+def test_lanephases_ring_tool_equals_plain_version(card, ring_tool, w, kind):
+    """The ring fed by the copy engine, bit for bit its plain version on an
+    odd padded width (pitched to a multiple of 4), with the plan its CPU
+    model (``tma_ring_steps``) replays."""
+    from torchpiv_tpu_torch.kernels.shift import launch_variant
+
+    tool, copy = ring_tool
+    o = w // 2
+    step = w - o
+    W = w + step * 2 * (32 // warp_lanes(w)[0] + 1)
+    W += 1 - (W + 2 * max(w // 2, 1)) % 2
+    shape = (w + 3 * step - 1, W)
+    H = shape[0]
+    n = ((H - w) // step + 1) * ((W - w) // step + 1)
+    g = torch.Generator().manual_seed(w)
+    frames = (torch.rand(3, H, W, generator=g) * 255).to(card)
+    vx = torch.rand(3, n, generator=g) * 3 * w - 1.5 * w
+    vy = torch.rand(3, n, generator=g) * 3 * w - 1.5 * w
+    if kind == "mixed":
+        vx = vx.round()
+    ops = shift_operands(frames, vx.to(card), vy.to(card), frame_shape=shape,
+                         wind_size=w, overlap=o)
+    pitched = torch.nn.functional.pad(ops.frame, (0, -ops.frame.shape[-1] % 4))
+    with tool.base.pointed_at(copy):
+        got = launch_variant(ops, w, "lanephases", frame=pitched.contiguous())
+        torch.cuda.synchronize()
+        plan = tool.card_plan(w)
+    assert torch.equal(got, blend_reference_variant(ops, w, "lanephases"))
+    want = tool.ring_plan(w)
+    assert {k: plan[k] for k in want if k in plan} == \
+        {k: want[k] for k in want if k in plan}
+    assert plan["blocks_per_sm"] >= 1
+
+
 # every width the bicubic kernel serves differently: several windows a warp
 # (4, 16), a group one lane short (31), one to four columns a lane, with
 # and without the extra slot (32, 33, 64, 125)
@@ -323,7 +439,7 @@ def test_shift_kernel_does_not_spill(card, w):
 
 @pytest.mark.parametrize("w", [1, 3, 4, 16, 31, 32, 33, 64, 96, 125, 128])
 @pytest.mark.parametrize("name", ["shift_windows_bicubic", "shift_windows_phases",
-                                  "shift_windows_bf16"])
+                                  "shift_windows_bf16", "shift_windows_lanephases"])
 def test_warp_shift_kernels_do_not_spill(card, name, w):
     """Every instance of the kernels on warp_lanes.cuh's map: no spill, no
     shared memory, and the windows a block of the lane map."""

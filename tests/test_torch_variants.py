@@ -160,8 +160,9 @@ def test_unknown_variant_raises():
 @pytest.mark.parametrize("variant", NEW)
 def test_variant_frame_layout(variant):
     """What the kernels' loads need of the frame the wrapper hands them:
-    for ``"bf16"`` the padded float32 frame itself, no copy (its kernel
-    rounds each sample as it loads it); else the type, a row pitch in whole
+    for ``"bf16"`` and ``"lanephases"`` the padded float32 frame itself, no
+    copy (their kernels read it a coalesced row at a time; the first
+    rounds each sample as it loads it); else bfloat16, a row pitch in whole
     16-byte pieces with room past the last tile, zeros in the pad and the
     frame itself untouched."""
     shape, w, o = (64, 91), 16, 8  # an odd padded width
@@ -172,19 +173,14 @@ def test_variant_frame_layout(variant):
     ops = shift_operands(frame, z, z, frame_shape=shape, wind_size=w, overlap=o)
     Wp = ops.frame.shape[-1]
     got = variant_frame(ops, variant)
-    if variant == "bf16":
+    if variant not in BF16_FRAME_VARIANTS:
         assert got.dtype == torch.float32 and got.shape == ops.frame.shape
         assert got.data_ptr() == ops.frame.data_ptr() and got.is_contiguous()
         assert got.stride() == ops.frame.stride()
         return
-    if variant in BF16_FRAME_VARIANTS:
-        assert got.dtype == torch.bfloat16
-        assert got.shape[-1] % 8 == 0 and got.shape[-1] >= Wp + 2
-        assert torch.equal(got[..., :Wp], ops.frame.to(torch.bfloat16))
-    else:
-        assert got.dtype == torch.float32
-        assert got.shape[-1] % 4 == 0 and got.shape[-1] >= Wp + 4
-        assert torch.equal(got[..., :Wp], ops.frame)
+    assert got.dtype == torch.bfloat16
+    assert got.shape[-1] % 8 == 0 and got.shape[-1] >= Wp + 2
+    assert torch.equal(got[..., :Wp], ops.frame.to(torch.bfloat16))
     assert got.is_contiguous() and not got[..., Wp:].any()
 
 

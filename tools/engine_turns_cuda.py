@@ -12,8 +12,9 @@ that checkout's kernels and profiles, twice each, one batch of 4 pairs of
 ``chip_smoke.phase_profile``: ``CWS`` (the main path), ``CWS bicubic``
 (``cws_interp="bicubic"``, sheared pairs), ``robust`` (the robust
 configuration with ``shift_variant="phases"``, corrupted pairs and the wall
-mask), ``DEF peakfit=pallas`` (sheared pairs, the fused peak fit) and ``CWS
-bf16`` (``shift_variant="bf16"``).  The pairs are written once, by this
+mask), ``DEF peakfit=pallas`` (sheared pairs, the fused peak fit), ``CWS
+bf16`` (``shift_variant="bf16"``) and ``CWS lanephases``
+(``shift_variant="lanephases"``).  The pairs are written once, by this
 checkout's ``chip_smoke.py``, into a temporary directory that every turn
 reads.  Two calls may land on two cards: compare the two checkouts only
 within one run of this tool.
@@ -37,7 +38,8 @@ from pathlib import Path
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-ENGINES = ("CWS", "CWS bicubic", "robust", "DEF peakfit=pallas", "CWS bf16")
+ENGINES = ("CWS", "CWS bicubic", "robust", "DEF peakfit=pallas", "CWS bf16",
+           "CWS lanephases")
 
 
 def write_pairs(folder: str) -> None:
@@ -69,7 +71,8 @@ def turn(tree: str, folder: str) -> dict:
                                     "shift_variant": "phases", **cs.ROBUST}),
                "DEF peakfit=pallas": ("shear", {"multipass_mode": "DEF",
                                                 "peakfit": "pallas"}),
-               "CWS bf16": ("uniform", {"shift_variant": "bf16"})}
+               "CWS bf16": ("uniform", {"shift_variant": "bf16"}),
+               "CWS lanephases": ("uniform", {"shift_variant": "lanephases"})}
     out = {}
     for _ in range(2):
         for engine in ENGINES:

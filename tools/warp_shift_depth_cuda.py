@@ -52,7 +52,7 @@ _spec = importlib.util.spec_from_file_location("shift_anatomy_cuda",
 base = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(base)
 
-FRAME, BATCH, W, O, S = (2048, 2048), 4, 32, 16, 16
+FRAME, BATCH, W, O = (2048, 2048), 4, 32, 16
 DEPTHS = {"shift_windows_bicubic": (4, 8, 12, 16),
           "shift_windows_phases": (4, 6, 7, 8),
           "shift_windows_bf16": (4, 6, 7, 8)}
@@ -112,7 +112,7 @@ def measure(frames: torch.Tensor) -> list:
                                       blend_reference_bicubic(cubic, W))}
     for v in vframe:
         runs[f"shift_windows_{v}"] = (
-            lambda v=v: launch_variant(linear, W, v, S, frame=vframe[v]),
+            lambda v=v: launch_variant(linear, W, v, frame=vframe[v]),
             blend_reference_variant(linear, W, v))
     rows = []
     for (name, depth), (copy, ptxas) in build().items():

@@ -6,7 +6,10 @@ worker also stages its batch in pinned host memory and issues the
 host-to-device copy with ``non_blocking=True`` on a side stream, so decode,
 staging and copies overlap the engine's work on earlier batches; the
 consumer's current stream waits on the copy's event before the batch is
-handed out.
+handed out.  Where the dataset's native decoder reads the frames
+(``PIVDataset.native_shape``), a worker decodes a batch straight into pinned
+staging from the caching host allocator, first frames then second ones,
+and copies the two halves from there: no stack and no pinning copy.
 """
 from __future__ import annotations
 
@@ -24,8 +27,9 @@ class PairPrefetcher:
     """Iterate decoded, device-placed frame-pair batches.
 
     Args:
-      dataset: a ``PIVDataset`` (``read_batch(indices)`` gives
-        ``(ids, batch_a, batch_b)`` arrays, unreadable pairs dropped), or any
+      dataset: a ``PIVDataset`` (``read_batch(indices, threads=, out=)``
+        gives ``(ids, batch_a, batch_b)`` arrays, unreadable pairs dropped;
+        its ``native_shape`` says whether it can decode into a buffer), or any
         indexable of ``(frame_a, frame_b)`` arrays with ``(None, None)`` for
         an unreadable pair (``PreprocessedPairs``).
       batch_size: pairs per yielded batch (the last batch may be short).
@@ -59,10 +63,25 @@ class PairPrefetcher:
         self.spans = spans
         self.stream = stream
 
-    def _decode(self, idxs: List[int]):
+    def _decode(self, idxs: List[int], pinned: bool = False):
+        """Decode one batch -> ``(ids, a, b)`` (numpy, or with ``pinned``
+        and a native decoder pinned uint8 tensors), or None when no pair of
+        it is readable."""
         if hasattr(self.dataset, "read_batch"):
-            ids, a, b = self.dataset.read_batch(idxs)
-            return (ids, a, b) if ids else None
+            shape = getattr(self.dataset, "native_shape", None)
+            staging = None
+            if pinned and shape is not None:
+                staging = torch.empty((2 * len(idxs), *shape), dtype=torch.uint8,
+                                      pin_memory=True)
+            ids, a, b = self.dataset.read_batch(
+                idxs, threads=self.num_threads,
+                out=None if staging is None else staging.numpy())
+            if not ids:
+                return None
+            if staging is not None and len(ids) == len(idxs):
+                n = len(ids)
+                return ids, staging[:n], staging[n:]
+            return ids, a, b
         pairs = [self.dataset[i] for i in idxs]
         keep = [(i, a, b) for i, (a, b) in zip(idxs, pairs)
                 if a is not None and b is not None]
@@ -76,19 +95,21 @@ class PairPrefetcher:
         ``(a, b, ids, copied_event, span)`` or None when no pair of it is
         readable."""
         t0 = time.perf_counter()
-        decoded = self._decode(idxs)
+        decoded = self._decode(idxs, pinned=stream is not None)
         if decoded is None:
             return None
         ids, a, b = decoded
         t1 = time.perf_counter()
-        a, b = torch.from_numpy(a), torch.from_numpy(b)
+        if isinstance(a, np.ndarray):
+            a, b = torch.from_numpy(a), torch.from_numpy(b)
         nbytes = a.nbytes + b.nbytes
         span = {"decode_s": t1 - t0, "pin_s": 0.0, "h2d": None} if self.spans else None
         if stream is None:
             if self.transfer_log is not None:
                 self.transfer_log.append((t1, time.perf_counter(), nbytes))
             return a, b, ids, None, span
-        a, b = a.pin_memory(), b.pin_memory()
+        if not a.is_pinned():  # decoded in Python, or a pair was dropped
+            a, b = a.pin_memory(), b.pin_memory()
         t2 = time.perf_counter()
         with torch.cuda.stream(stream):
             begun = None

@@ -2,9 +2,10 @@
 // warp_lanes.cuh's lane map (reach 1), generic in the frame's element type:
 // shift_windows_phases.cu reads a bfloat16 frame and widens each sample,
 // shift_windows_bf16.cu reads the float32 frame and rounds each sample to
-// bfloat16 (`RoundedF32`).  One design with two loads; the plain version
-// of both is `blend_reference_variant` in torchpiv_tpu_torch/ops/shifts.py,
-// which `warp_window_steps` there replays lane by lane.
+// bfloat16 (`RoundedF32`), shift_windows_lanephases.cu reads the float32
+// frame as it is.  One design with three loads; the plain version of all
+// is `blend_reference_variant` in torchpiv_tpu_torch/ops/shifts.py, which
+// `warp_window_steps` there replays lane by lane.
 //
 // A warp owns a window (or 32 / G windows of up to 16 px); the warp walks
 // the w + 1 tile rows, each one coalesced `__ldg` a slot widened to

@@ -1,6 +1,7 @@
 // The lane map of a window kept in a warp's registers, shared by the
 // redesigned window shifts shift_windows_bicubic.cu and, through
-// warp_bilinear.cuh, shift_windows_phases.cu and shift_windows_bf16.cu
+// warp_bilinear.cuh, shift_windows_phases.cu, shift_windows_bf16.cu and
+// shift_windows_lanephases.cu
 // (shift_windows.cu has its own copy, which its anatomy tool edits by
 // text).
 //

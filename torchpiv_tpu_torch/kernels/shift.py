@@ -11,16 +11,16 @@ variant never steps down to another kernel or to the plain version.
 (``variant="rolls"``), ``shift_windows_bicubic.launches`` those of the
 bicubic one, and ``shift_windows_<variant>.launches`` those of a variant.
 
-The bilinear kernel, the bicubic one, ``"bf16"`` and ``"phases"`` keep a
-window in a warp's registers (a tile row a coalesced load, neighbours by
-shuffle, no shared memory); ``describe`` reports what the compiler made of
-each of their instances.  The variants take what the TPU wrapper takes for
+The bilinear kernel, the bicubic one, ``"bf16"``, ``"lanephases"`` and
+``"phases"`` keep a window in a warp's registers (a tile row a coalesced
+load, neighbours by shuffle, no shared memory); ``describe`` reports what
+the compiler made of each of their instances.  The variants take what the TPU wrapper takes for
 them: bilinear only, no ``packed`` output, float32 output.  ``"bf16"``,
 ``"mxu"`` and ``"phases"`` compute on the padded frame rounded to bfloat16
 (round to nearest even, after the flat-wrap pad): ``"mxu"`` and
 ``"phases"`` read a bfloat16 copy of it (``BF16_FRAME_VARIANTS``),
 ``"bf16"`` reads the float32 frame itself and rounds each sample as it
-loads it.  ``"lanephases"`` reads the float32 frame on a padded pitch.
+loads it; ``"lanephases"`` reads it as it is, on the same body.
 
 ``packed=True`` (bilinear only) writes the lane-packed layout of the JAX
 package's pass-fusion kernels (``ops/packing.py``) straight from the kernel.
@@ -46,7 +46,8 @@ MAX_WIND = {"bilinear": MAX_SHIFT_WIND, "bicubic": MAX_BICUBIC_WIND}
 DESCRIBED = {"shift_windows": MAX_SHIFT_WIND,
              "shift_windows_bicubic": MAX_BICUBIC_WIND,
              "shift_windows_bf16": MAX_SHIFT_WIND,
-             "shift_windows_phases": MAX_SHIFT_WIND}
+             "shift_windows_phases": MAX_SHIFT_WIND,
+             "shift_windows_lanephases": MAX_SHIFT_WIND}
 # the variants whose kernel reads a bfloat16 copy of the padded frame
 BF16_FRAME_VARIANTS = ("mxu", "phases")
 
@@ -97,27 +98,22 @@ def launch(ops: ShiftOperands, wind_size: int, interp: str = "bilinear",
 
 
 def variant_frame(ops: ShiftOperands, variant: str) -> torch.Tensor:
-    """The frame a variant's kernel reads: for ``"bf16"`` ``ops.frame``
-    itself (the kernel rounds as it loads); else ``ops.frame`` with its
-    rows padded with zeros to the pitch the kernel's vector loads need (the
-    clamps keep every tile inside the unpadded width), in bfloat16 for
-    ``BF16_FRAME_VARIANTS``."""
-    if variant == "bf16":
+    """The frame a variant's kernel reads: for ``"bf16"`` and
+    ``"lanephases"`` ``ops.frame`` itself (the first rounds each sample as
+    it loads it); for ``BF16_FRAME_VARIANTS`` ``ops.frame`` cast to
+    bfloat16, its rows padded with zeros to the pitch the kernel's vector
+    loads need (the clamps keep every tile inside the unpadded width)."""
+    if variant not in BF16_FRAME_VARIANTS:
         return ops.frame.contiguous()
     Wp = ops.frame.shape[-1]
-    if variant in BF16_FRAME_VARIANTS:
-        pitch = -(-(Wp + 2) // 8) * 8
-    else:
-        pitch = -(-(Wp + 4) // 4) * 4
-    frame = ops.frame
-    if variant in BF16_FRAME_VARIANTS:  # zeros pad alike before and after the cast
-        frame = frame.to(torch.bfloat16)
-    return torch.nn.functional.pad(frame, (0, pitch - Wp)).contiguous()
+    pitch = -(-(Wp + 2) // 8) * 8
+    # zeros pad alike before and after the cast
+    return torch.nn.functional.pad(ops.frame.to(torch.bfloat16),
+                                   (0, pitch - Wp)).contiguous()
 
 
 def launch_variant(ops: ShiftOperands, wind_size: int, variant: str,
-                   max_shift: int, frame: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+                   frame: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the kernel of ``variant`` on CUDA ``ShiftOperands`` ->
     ``[B, N, w, w]``.  ``frame`` is ``variant_frame(ops, variant)`` when the
     caller has it already."""
@@ -129,16 +125,14 @@ def launch_variant(ops: ShiftOperands, wind_size: int, variant: str,
     pitch = frame.shape[-1]
     out = torch.empty((B, ops.n_rows * ops.n_cols, wind_size, wind_size),
                       dtype=torch.float32, device=dev)
-    extra = (max_shift,) if variant == "lanephases" else ()
     fn = _build.function(
         name, f"{name}_f32",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * (9 + len(extra))
-        + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     with torch.cuda.device(dev):
         rc = fn(frame.data_ptr(), ops.dy.data_ptr(), ops.dx.data_ptr(),
                 ops.fy.data_ptr(), ops.fx.data_ptr(), out.data_ptr(), B, Hp, Wp,
                 pitch, ops.n_rows, ops.n_cols, wind_size, ops.step, ops.off,
-                *extra, torch.cuda.current_stream(dev).cuda_stream)
+                torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, rc)
     VARIANT_WRAPPERS[variant].launches += 1
     return out
@@ -205,8 +199,7 @@ def shift_windows(
         if packed:
             out = pack_windows(out, ops.n_rows, ops.n_cols, wind_size)
     elif variant != "rolls":
-        S = max_shift if max_shift is not None else max(wind_size // 2, 1)
-        out = launch_variant(ops, wind_size, variant, S)
+        out = launch_variant(ops, wind_size, variant)
     else:
         out = launch(ops, wind_size, interp, packed)
     return out if batched else out[0]
@@ -226,8 +219,9 @@ def shift_windows_bf16(frame, vel_x, vel_y, **kw) -> torch.Tensor:
 
 
 def shift_windows_lanephases(frame, vel_x, vel_y, **kw) -> torch.Tensor:
-    """``shift_windows`` with ``variant="lanephases"``: the kernel that
-    stages one strip for a run of windows."""
+    """``shift_windows`` with ``variant="lanephases"``: the window shift of
+    the float32 frame on the body of ``"bf16"``, a window in a warp's
+    registers, under its own name and launch count."""
     return shift_windows(frame, vel_x, vel_y, variant="lanephases", **kw)
 
 

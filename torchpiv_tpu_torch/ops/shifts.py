@@ -285,9 +285,10 @@ def _check_writes(name: str, writes: torch.Tensor) -> None:
 
 def warp_window_steps(ops: ShiftOperands, wind_size: int,
                       packed: bool = False) -> torch.Tensor:
-    """The bilinear windows by the steps of ``csrc/shift_windows.cu`` (and,
-    on the frame rounded to bfloat16, of ``csrc/warp_bilinear.cuh``'s body
-    in ``shift_windows_phases.cu`` and ``shift_windows_bf16.cu``),
+    """The bilinear windows by the steps of ``csrc/shift_windows.cu`` and of
+    ``csrc/warp_bilinear.cuh``'s body (in ``shift_windows_lanephases.cu``;
+    on the frame rounded to bfloat16, in ``shift_windows_phases.cu`` and
+    ``shift_windows_bf16.cu``),
     with tensor ops: the lane map of ``_warp_grid`` (reach 1); the warp
     walks the tile rows, each loaded once and carried to the next step as
     the row above; a slot's right neighbour comes from the group's lane
