@@ -62,7 +62,22 @@ Phases, each failing loudly:
    ``infill="fused"``;
 8. the CUDA engine against the CPU engine (plain versions) on one full-size
    pair: CWS, DEF, DEF and CWS with bicubic resampling, ``split``, ``on``
-   and the robust configuration.
+   and the robust configuration;
+9. the mesh (``parallel``): the seven resampling kernels at the pass-2
+   shape on 2 and 4 blocks of window rows (``row_start``/``n_rows_local``,
+   the clamped blocks of ``ShardedPIV``, flat-wrap on and off), every block
+   bit-equal to the same rows of the full launch and to its plain version,
+   timed against the full launch; ``OfflinePIV`` over a one-device mesh,
+   bit-equal to the unsharded run, also with ``background="auto"`` (one
+   batch of the rough pairs, its host spans printed); window splits over the one card named 2
+   and 4 times (``{"pairs": 1, "windows": 2}``, ``{"pairs": 2, "windows":
+   2}``): displacement, valid share, launch counts and the parity budget
+   against the unsharded engine; one batch each of DEF (with the fused peak
+   fit), CWS + bicubic and the four shift variants under the window split;
+   the sharded engines' device ms and launches a batch (``torch.profiler``)
+   beside the unsharded one and the window-split table of
+   ``parallel.meshprof``; a one-rank NCCL group through
+   ``initialize_distributed`` in a child process.
 
 Phase 3 also runs ``tools/shift_anatomy_cuda.py``'s six modes of the
 window-shift kernel at pass 2 (``full``, ``noshuffle`` and ``rowbyrow``
@@ -83,7 +98,9 @@ fields bit-equal, decode ms and the feeder's issue ms a batch.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
-exits with 1 and prints no result.
+exits with 1 and prints no result.  The window splits of phase 9 run on the
+one card named more than once: they show the split's cost, not a
+multi-device speed.
 """
 from __future__ import annotations
 
@@ -1100,11 +1117,12 @@ def span_report(label: str, spans: list, t0: float, wall_s: float) -> dict:
     """Log a run's host spans (``OfflinePIV.span_log``): per-batch medians
     and sums of each span, the busy share they give (device ms over the
     wall time) and the first field's latency; returns the summary."""
+    keys = [k for k in SPANS if spans[0][k] is not None]  # h2d_ms: None on a mesh
     summary = {
         "spans": label, "batches": len(spans), "pairs": sum(s["pairs"] for s in spans),
         "wall_s": wall_s,
-        "median": {k: float(np.median([s[k] for s in spans])) for k in SPANS},
-        "sum": {k: float(sum(s[k] for s in spans)) for k in SPANS},
+        "median": {k: float(np.median([s[k] for s in spans])) for k in keys},
+        "sum": {k: float(sum(s[k] for s in spans)) for k in keys},
         "busy_share_spans": sum(s["device_ms"] for s in spans) / 1e3 / wall_s,
         "first_field_s": spans[0]["first_field_t"] - t0}
     log(json.dumps(summary))
@@ -1379,11 +1397,12 @@ def phase_decoders(folder: str) -> dict:
     return out
 
 
-def phase_background_preprocess(rough: str, uniform: str, tmp: str, kernels) -> None:
+def phase_background_preprocess(rough: str, uniform: str, tmp: str, kernels):
     """One batch of ``background="auto"`` over the rough pairs, equal bit for
     bit to an engine of the same configuration on frames whose background
     was subtracted on the host (the saturating uint8 subtract is exact), and
-    one batch of ``preprocess="clahe"`` over the uniform pairs."""
+    one batch of ``preprocess="clahe"`` over the uniform pairs; returns the
+    ``background="auto"`` fields."""
     from torchpiv_tpu_torch import OfflinePIV
     from torchpiv_tpu_torch.io.dataset import PIVDataset, compute_background
     from torchpiv_tpu_torch.io.decode import imwrite_gray
@@ -1393,6 +1412,7 @@ def phase_background_preprocess(rough: str, uniform: str, tmp: str, kernels) -> 
     fields, launches, _ = drive(piv, kernels)
     check_fields(fields, piv, BATCH)
     check(launches == only(launches, shift_windows=2), f"background: launches {launches}")
+    bg_fields = fields
     ds = PIVDataset(rough, ".bmp")
     ds.img_pairs = ds.img_pairs[:BATCH]
     bg = compute_background(ds)
@@ -1421,6 +1441,7 @@ def phase_background_preprocess(rough: str, uniform: str, tmp: str, kernels) -> 
     valid = 1.0 - inval.float().mean().item()
     log(f"preprocess=clahe: valid share {valid:.4f} over the batch")
     check(valid > 0.95, f"preprocess=clahe: valid share {valid}")
+    return bg_fields
 
 
 def phase_variant_paths(folder: str, kernels, rolls_fields, split_fields) -> dict:
@@ -1758,6 +1779,289 @@ def phase_reference(folder: str, label: str, frame_mask=None, **cfg_kw) -> None:
     check(flips < 0.02 and rms < 0.01, f"{label}: mask mismatch {flips}, RMS {rms}")
 
 
+def block_rows(R: int, n_blocks: int):
+    """``(rloc, origins)``: the clamped row blocks ``ShardedPIV`` gives
+    ``n_blocks`` window shards of an ``R``-row grid."""
+    from torchpiv_tpu_torch.parallel.sharded import _block_layout
+
+    rloc, origins, _ = _block_layout(R, n_blocks)
+    return rloc, [int(o) for o in origins]
+
+
+def phase_row_blocks(frames: torch.Tensor) -> dict:
+    """The seven resampling kernels at the pass-2 shape on 2 and 4 blocks of
+    window rows (the last block clamped onto its neighbour), flat-wrap on
+    and off: each block bit-equal to the same rows of the full launch and
+    to its plain version on the block; the blocks' summed time (flat-wrap
+    on) against the full launch.  Returns ``{kernel: {blocks: ms}}``."""
+    from torchpiv_tpu_torch.kernels import deform as def_k
+    from torchpiv_tpu_torch.kernels import shift as shift_k
+    from torchpiv_tpu_torch.kernels.shift import variant_frame
+    from torchpiv_tpu_torch.ops.shifts import VARIANTS
+    from torchpiv_tpu_torch.ops.deform import def_operands, def_reference
+    from torchpiv_tpu_torch.ops.shifts import (blend_reference_bicubic,
+                                               blend_reference_variant,
+                                               shift_operands)
+
+    w, o = 32, 16
+    n = window_count(w, o)
+    R = (FRAME[0] - w) // (w - o) + 1
+    C = n // R
+    dev = frames.device
+    g = torch.Generator(device="cpu").manual_seed(11)
+    vx, vy = (t.to(dev) for t in shift_cases(n, g)["fractional"])
+    grads = [((torch.rand(BATCH, n, generator=g) * 2 - 1) * 0.05).to(dev) for _ in range(4)]
+
+    def sel(m, r0, rl):  # the maps of rows r0 .. r0 + rl - 1 (None: to the end)
+        return m[:, r0 * C:None if rl is None else (r0 + rl) * C].contiguous()
+
+    def shift_kind(interp="bilinear", variant="rolls"):
+        def make(r0, rl, flat):
+            return shift_operands(frames, sel(vx, r0, rl), sel(vy, r0, rl),
+                                  frame_shape=FRAME, wind_size=w, overlap=o,
+                                  flat_wrap=flat, interp=interp, row_start=r0,
+                                  n_rows_local=rl)
+        if interp == "bicubic":
+            return make, (lambda ops, frame=None: shift_k.launch(ops, w, "bicubic")), \
+                (lambda ops: blend_reference_bicubic(ops, w))
+        if variant == "rolls":
+            return make, (lambda ops, frame=None: shift_k.launch(ops, w)), \
+                (lambda ops: blend_reference_variant(ops, w))
+        # ``frame``: the variant's frame, made once for the timed launches
+        # (the blocks share it), as phase 3 times the kernels
+        return make, (lambda ops, frame=None: shift_k.launch_variant(
+            ops, w, variant, frame=frame)), \
+            (lambda ops: blend_reference_variant(ops, w, variant))
+
+    def def_make(r0, rl, flat):
+        return def_operands(frames, sel(vx, r0, rl), sel(vy, r0, rl),
+                            *(sel(m, r0, rl) for m in grads), frame_shape=FRAME,
+                            wind_size=w, overlap=o, margin=2, flat_wrap=flat,
+                            row_start=r0, n_rows_local=rl)
+
+    kinds = {"shift_windows": shift_kind(),
+             "shift_windows_bicubic": shift_kind("bicubic"),
+             "def_windows": (def_make, lambda ops, frame=None: def_k.launch(ops, w),
+                             lambda ops: def_reference(ops, w))}
+    for variant in ("bf16", "lanephases", "mxu", "phases"):
+        kinds[f"shift_windows_{variant}"] = shift_kind(variant=variant)
+    out = {}
+    for name, (make, run, plain) in kinds.items():
+        out[name] = {}
+        for flat in (True, False):
+            full_ops = make(0, R, flat)
+            full = run(full_ops)
+            variant = name.removeprefix("shift_windows_")
+            vf = variant_frame(full_ops, variant) if variant in VARIANTS[1:] else None
+            check(torch.equal(full, run(make(0, None, flat))),
+                  f"{name}: row_start 0 with the default n_rows_local != full")
+            for n_blocks in (2, 4):
+                rloc, origins = block_rows(R, n_blocks)
+                blocks = [make(r0, rloc, flat) for r0 in origins]
+                for r0, ops in zip(origins, blocks):
+                    got = run(ops)
+                    check(torch.equal(got, full[:, r0 * C:(r0 + rloc) * C]),
+                          f"{name} flat_wrap={flat}: block {r0}+{rloc} != the full "
+                          f"launch's rows")
+                    check(torch.equal(got, plain(ops)),
+                          f"{name} flat_wrap={flat}: block {r0}+{rloc} != its plain "
+                          f"version")
+                    del got
+                if flat:
+                    out[name][n_blocks] = cuda_ms(lambda: [run(ops, vf) for ops in blocks])
+                del blocks
+            if flat:
+                out[name][1] = cuda_ms(lambda: run(full_ops, vf))
+            del full, full_ops
+        rloc2, _ = block_rows(R, 2)
+        rloc4, _ = block_rows(R, 4)
+        log(f"row blocks {name}: full {out[name][1]:.4f} ms; 2 blocks of {rloc2} rows "
+            f"{out[name][2]:.4f} ms ({out[name][2] / out[name][1]:.3f}x, rows "
+            f"{2 * rloc2 / R:.3f}x); 4 blocks of {rloc4} rows {out[name][4]:.4f} ms "
+            f"({out[name][4] / out[name][1]:.3f}x, rows {4 * rloc4 / R:.3f}x); every "
+            f"block bit-equal to the full launch's rows and to its plain version, "
+            f"flat-wrap on and off")
+        torch.cuda.empty_cache()
+    return out
+
+
+def first_batch(folder: str):
+    """The first ``BATCH`` pairs of ``folder`` as uint8 tensors on the card."""
+    from torchpiv_tpu_torch.io.dataset import PIVDataset
+
+    _, a, b = PIVDataset(folder, ".bmp").read_batch(list(range(BATCH)))
+    return torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+
+
+def mesh_parity(engine, sharded, a, b, label: str) -> dict:
+    """The sharded engine against the unsharded one on one batch: the
+    valid share, the mask mismatch and the RMS on jointly valid vectors
+    (the port's parity budget: < 2% and < 0.01 px)."""
+    u0, v0, i0 = engine(a, b)
+    u1, v1, i1 = sharded(a, b)
+    both = ~(i0 | i1)
+    valid = 1.0 - i1.float().mean().item()
+    flips = (i0 != i1).float().mean().item()
+    diff = torch.cat([(u1 - u0)[both], (v1 - v0)[both]]).abs()
+    rms = diff.square().mean().sqrt().item()
+    log(f"{label}: valid share {valid:.4f}, mask mismatch {flips:.5f}, RMS "
+        f"{rms:.3e} px, largest {diff.max().item():.3e} px against the unsharded "
+        f"engine on one batch")
+    check(valid > 0.95, f"{label}: valid share {valid}")
+    check(flips < 0.02 and rms < 0.01, f"{label}: mask mismatch {flips}, RMS {rms}")
+    return {"valid": valid, "mismatch": flips, "rms": rms}
+
+
+NCCL_CHILD = """
+import torch
+import torch.distributed as dist
+from torchpiv_tpu_torch.parallel import initialize_distributed
+rank, size = initialize_distributed()
+x = torch.full((4,), 2.0, device="cuda")
+dist.all_reduce(x)
+torch.cuda.synchronize()
+print("nccl group", dist.get_backend(), rank, size, x.tolist(), flush=True)
+ok = dist.get_backend() == "nccl" and (rank, size) == (0, 1) and x.tolist() == [2.0] * 4
+dist.destroy_process_group()
+raise SystemExit(0 if ok else 1)
+"""
+
+
+def phase_nccl_group() -> None:
+    """A one-rank NCCL group through ``initialize_distributed`` (the
+    launcher's ``env://`` variables, ``TPIV_COORDINATOR=auto``) and an
+    all_reduce of a CUDA tensor, in a child process that is killed after
+    180 s."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "TPIV_COORDINATOR": "auto", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port), "RANK": "0", "WORLD_SIZE": "1"}
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", NCCL_CHILD], env=env, timeout=180,
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True)
+    log(f"{run.stdout.strip()} (rc {run.returncode}, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    check(run.returncode == 0, f"the one-rank NCCL group failed: {run.stderr[-2000:]}")
+
+
+def device_time(fn) -> list:
+    """``[device ms, device events]`` of one call of ``fn``: the sum of the
+    kernels' and copies' times in ``torch.profiler``, and their count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return [sum(e.self_device_time_total for e in events) / 1e3,
+            sum(e.count for e in events)]
+
+
+def phase_mesh(uniform: str, shear: str, rough: str, cws_fields, bg_fields,
+               kernels) -> dict:
+    """``OfflinePIV(mesh=)`` and ``ShardedPIV`` on the card (the one card
+    named once, twice or four times); returns the sharded engines' device
+    ms and device events a batch."""
+    from torchpiv_tpu_torch import MultipassPIV, OfflinePIV, PIVConfig
+    from torchpiv_tpu_torch.parallel import ShardedPIV, make_mesh
+    from torchpiv_tpu_torch.parallel.meshprof import profile
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    kw = dict(wind_size=64, overlap=32, multipass=2, multipass_mode="CWS",
+              batch_size=BATCH)
+    n_batches = -(-N_PAIRS // BATCH)
+    piv = OfflinePIV(uniform, mesh=make_mesh({"pairs": 1}, [card]), **kw)
+    fields, launches, pairs_per_s = drive(piv, kernels)
+    check_fields(fields, piv, N_PAIRS)
+    check(launches == only(launches, shift_windows=2 * n_batches),
+          f"one-device mesh launches {launches}")
+    same_fields(fields, cws_fields, "one-device mesh")
+    check(len(fields) == len(cws_fields), "one-device mesh: a pair is missing")
+    log(f"mesh {{'pairs': 1}}: {pairs_per_s:.3f} pairs/s, fields bit-equal to the "
+        f"unsharded CWS path")
+    # background="auto" over a mesh: the decode workers subtract it on the
+    # host, the unsharded path on the card
+    piv = OfflinePIV(rough, mesh=make_mesh({"pairs": 1}, [card]), background="auto",
+                     max_pairs=BATCH, **kw)
+    fields, launches, _, spans = drive_with_spans(piv, kernels,
+                                                  "mesh {'pairs': 1} background=auto")
+    check_fields(fields, piv, BATCH)
+    check(launches == only(launches, shift_windows=2),
+          f"mesh background=auto: launches {launches}")
+    same_fields(fields, bg_fields, "mesh background=auto")
+    check(len(fields) == len(bg_fields), "mesh background=auto: a pair is missing")
+    log("mesh {'pairs': 1} background=auto: fields bit-equal to the unsharded "
+        "background=auto run")
+
+    a, b = first_batch(uniform)
+    for axes, n_dev in (({"pairs": 1, "windows": 2}, 2), ({"pairs": 2, "windows": 2}, 4)):
+        label = f"mesh {axes} over the card x{n_dev}"
+        piv = OfflinePIV(uniform, mesh=make_mesh(axes, [card] * n_dev), **kw)
+        fields, launches, pairs_per_s = drive(piv, kernels)
+        check_fields(fields, piv, N_PAIRS)
+        # a batch: one shift launch a frame on each of the pair x window shards
+        want = 2 * axes["pairs"] * axes["windows"] * n_batches
+        check(launches == only(launches, shift_windows=want), f"{label}: launches {launches}")
+        check_displacement(fields, label)
+        worst = max(max(np.abs(x[2] - y[2]).max(), np.abs(x[3] - y[3]).max())
+                    for x, y in zip(fields, cws_fields)) / UNIT
+        log(f"{label}: {pairs_per_s:.3f} pairs/s, launches {launches}, largest field "
+            f"difference from the unsharded path {worst:.3e} px (after the host tail)")
+        mesh_parity(piv.engine, piv._sharded, a, b, label)
+
+    # one batch each of the other paths under the window split
+    mesh = make_mesh({"pairs": 1, "windows": 2}, [card] * 2)
+    sa, sb = first_batch(shear)
+    for label, folder_ab, cfg_kw, want in (
+            ("DEF peakfit=pallas", (sa, sb), dict(multipass_mode="DEF", peakfit="pallas"),
+             dict(def_windows=4, peakfit=4)),
+            ("CWS bicubic", (sa, sb), dict(cws_interp="bicubic"),
+             dict(shift_windows_bicubic=4)),
+            *((f"CWS shift_variant={v}", (a, b), dict(shift_variant=v),
+               {f"shift_windows_{v}": 4}) for v in ("bf16", "lanephases", "mxu", "phases"))):
+        engine = MultipassPIV(PIVConfig(frame_shape=FRAME, wind_size=64, overlap=32,
+                                        multipass=2, **cfg_kw))
+        sharded = ShardedPIV(engine, mesh)
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        u, _, _ = sharded(*folder_ab)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels}
+        check(launches == only(launches, **want),
+              f"window split {label}: launches {launches}")
+        check(tuple(u.shape) == (BATCH, *engine.final_field_shape)
+              and bool(torch.isfinite(u).all()), f"window split {label}: fields")
+        mesh_parity(engine, sharded, *folder_ab, f"window split {label}")
+
+    rows = profile(frame_shape=FRAME, wind_size=64, overlap=32, multipass=2,
+                   splits=[1, 2, 4], reps=5, log=log, devices=[card] * 4, batch=BATCH)
+    log(json.dumps({"meshprof": rows}))
+    phase_nccl_group()
+    # device ms a batch: the kernels' and copies' time in the profiler (a
+    # spin cannot queue these calls: a split engine's launches fill the
+    # card's launch queue before the spin ends); meshprof's table above
+    # times host-issued steps with events
+    engine = MultipassPIV(PIVConfig(frame_shape=FRAME, wind_size=64, overlap=32,
+                                    multipass=2))
+    device_ms = {"unsharded": device_time(lambda: engine(a, b))}
+    for axes, n_dev in (({"pairs": 1, "windows": 2}, 2), ({"pairs": 2, "windows": 2}, 4),
+                        ({"pairs": 1, "windows": 4}, 4)):
+        sharded = ShardedPIV(engine, make_mesh(axes, [card] * n_dev))
+        device_ms[json.dumps(axes)] = device_time(lambda: sharded(a, b))
+    log("mesh engines, CWS w64/o32 2-pass, a batch of "
+        f"{BATCH}: [device ms, device events] {json.dumps(device_ms)}")
+    torch.cuda.empty_cache()
+    return device_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1789,11 +2093,10 @@ def main() -> int:
         variant_runs = phase_variant_paths(uniform, KERNELS, cws_fields,
                                            fused_runs["split"][2])
         robust_launches, robust_pairs_per_s = phase_robust_paths(rough, KERNELS)
-        del cws_fields
         log(f"paths done at {time.perf_counter() - t_start:.1f} s")
         phase_serial_against_pipelined(linked)
         phase_decoders(linked)
-        phase_background_preprocess(rough, uniform, tmp, KERNELS)
+        bg_fields = phase_background_preprocess(rough, uniform, tmp, KERNELS)
         log(f"pipeline phases done at {time.perf_counter() - t_start:.1f} s")
         cws = phase_profile(uniform, "CWS")
         log(f"CWS engine: {cws['device_ms']:.3f} ms of device time a batch of {BATCH}; "
@@ -1855,6 +2158,12 @@ def main() -> int:
         phase_reference(shear, "CWS bicubic", cws_interp="bicubic")
         phase_reference(uniform, "CWS fused=split", fused="split")
         phase_reference(uniform, "CWS fused=on", fused="on")
+        log(f"reference phase done at {time.perf_counter() - t_start:.1f} s")
+        frames_a = first_batch(uniform)[0].float()
+        phase_row_blocks(frames_a)
+        del frames_a
+        phase_mesh(uniform, shear, rough, cws_fields, bg_fields, KERNELS)
+        log(f"mesh phase done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the path that runs it
     on_path = {"shift_windows": cws_launches, "shift_windows_bicubic": bicubic_launches,
                "def_windows": def_launches, "peakfit": def_launches,

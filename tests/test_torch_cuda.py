@@ -1040,3 +1040,110 @@ def test_tf32_on_is_refused(card, monkeypatch):
                        device=card)
     with pytest.raises(RuntimeError, match="TF32"):
         eng(torch.zeros(128, 128), torch.zeros(128, 128))
+
+
+ROW_BLOCK_KERNELS = ["rolls", "bicubic", "def", "def-bicubic", "bf16", "lanephases",
+                     "mxu", "phases"]
+
+
+@pytest.mark.parametrize("flat_wrap", [True, False])
+@pytest.mark.parametrize("kind", ROW_BLOCK_KERNELS)
+@pytest.mark.parametrize("shape,w,o", [((256, 320), 32, 16), ((200, 264), 64, 32),
+                                       ((96, 120), 8, 4)])
+def test_row_blocks_equal_the_rows_of_the_full_launch(card, shape, w, o, kind,
+                                                      flat_wrap):
+    """Every resampling kernel on blocks of window rows (``row_start``/
+    ``n_rows_local``, the clamped blocks of ``ShardedPIV``): bit-equal to the
+    same rows of the full launch and to the plain version on the block."""
+    from torchpiv_tpu_torch.parallel.sharded import _block_layout
+
+    g = torch.Generator().manual_seed(w)
+    R = (shape[0] - w) // (w - o) + 1
+    C = (shape[1] - w) // (w - o) + 1
+    frame = (torch.rand(2, *shape, generator=g) * 255).round().to(card)
+    maps = [(torch.rand(2, R * C, generator=g) * 2 * w - w).to(card) for _ in range(2)]
+    maps += [((torch.rand(2, R * C, generator=g) * 2 - 1) * 0.05).to(card)
+             for _ in range(4)]
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o, flat_wrap=flat_wrap)
+    if kind.startswith("def"):
+        kw.update(margin=2, interp="bicubic" if kind == "def-bicubic" else "bilinear")
+
+        def run(device, rows, n):
+            sel = [m[:, rows * C:(rows + n) * C].to(device) for m in maps]
+            return def_windows(frame.to(device), *sel, row_start=rows,
+                               n_rows_local=n, **kw)
+    else:
+        if kind == "bicubic":
+            kw.update(interp="bicubic")
+        elif kind != "rolls":
+            kw.update(variant=kind)
+
+        def run(device, rows, n):
+            sel = [m[:, rows * C:(rows + n) * C].to(device) for m in maps[:2]]
+            return shift_windows(frame.to(device), *sel, row_start=rows,
+                                 n_rows_local=n, **kw)
+    full = run(card, 0, R)
+    for n_blocks in (2, 3, 4):
+        rloc, origins, _ = _block_layout(R, n_blocks)
+        for r0 in origins.tolist():
+            got = run(card, r0, rloc)
+            assert torch.equal(got, full[:, r0 * C:(r0 + rloc) * C])
+            assert torch.equal(got.cpu(), run("cpu", r0, rloc))
+
+
+@pytest.mark.parametrize("axes,n_dev", [({"pairs": 1}, 1), ({"pairs": 2}, 2),
+                                        ({"pairs": 1, "windows": 2}, 2),
+                                        ({"pairs": 2, "windows": 2}, 4)])
+def test_mesh_on_one_card(card, tmp_path, axes, n_dev):
+    """``OfflinePIV(mesh=)`` over the one card named ``n_dev`` times: a pair
+    split bit-equal to the unsharded run, a window split within the parity
+    budget, each shard launching its shift kernel on its rows."""
+    from torchpiv_tpu_torch.kernels.shift import shift_windows as counted
+    from torchpiv_tpu_torch.parallel import make_mesh
+
+    for i in range(5):
+        fa, fb = particle_pair((256, 256), (3.3, -2.1), seed=60 + i)
+        imwrite_gray(str(tmp_path / f"p{i}_a.bmp"), fa)
+        imwrite_gray(str(tmp_path / f"p{i}_b.bmp"), fb)
+    kw = dict(wind_size=64, overlap=32, multipass=2, batch_size=2)
+    want = list(OfflinePIV(str(tmp_path), **kw)())
+    dev = torch.device("cuda", torch.cuda.current_device())
+    piv = OfflinePIV(str(tmp_path), mesh=make_mesh(axes, [dev] * n_dev), **kw)
+    counted.launches = 0
+    got = list(piv())
+    assert len(got) == len(want) == 5
+    batch = piv._batch
+    n_batches = -(-5 // batch)
+    assert counted.launches == 2 * axes["pairs"] * axes.get("windows", 1) * n_batches
+    for i, ((x0, y0, u0, v0), (x1, y1, u1, v1)) in enumerate(zip(want, got)):
+        np.testing.assert_array_equal(x0, x1)
+        # the same batches of two through the same engine: bit-equal (the
+        # padded last batch and one-pair shards are other shapes)
+        if axes == {"pairs": 1} and i < 4:
+            np.testing.assert_array_equal(u0, u1)
+            np.testing.assert_array_equal(v0, v1)
+        else:
+            assert np.sqrt(np.mean(((u0 - u1) / 1000.0) ** 2)) < 0.01
+            assert np.sqrt(np.mean(((v0 - v1) / 1000.0) ** 2)) < 0.01
+
+
+def test_mesh_background_on_one_card(card, tmp_path):
+    """``background="auto"`` over a one-device mesh (subtracted on the host
+    by the decode workers) bit-equal to the unsharded run (subtracted on the
+    card), batch for batch."""
+    from torchpiv_tpu_torch.parallel import make_mesh
+
+    glare = np.random.default_rng(5).uniform(0, 60, (256, 256)).astype(np.uint8)
+    for i in range(4):
+        fa, fb = particle_pair((256, 256), (3.0 - 0.5 * i, 1.0), seed=80 + i)
+        for tag, f in (("a", fa), ("b", fb)):
+            imwrite_gray(str(tmp_path / f"p{i}_{tag}.bmp"),
+                         np.clip(f.astype(int) + glare, 0, 255).astype(np.uint8))
+    kw = dict(wind_size=64, overlap=32, multipass=2, batch_size=2, background="auto")
+    want = list(OfflinePIV(str(tmp_path), **kw)())
+    dev = torch.device("cuda", torch.cuda.current_device())
+    got = list(OfflinePIV(str(tmp_path), mesh=make_mesh({"pairs": 1}, [dev]), **kw)())
+    assert len(got) == len(want) == 4
+    for a, b in zip(want, got):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)

@@ -21,9 +21,10 @@ within one run of this tool.
 
 Prints the card's name and power limit first, then one line a turn and
 engine (device ms a batch from ``torch.profiler``, the share of the window
-shifts and of the peak fit in it, the engine's ms a batch by CUDA events
-and its peak device memory), then a JSON line of the medians by checkout
-and engine.  Exits with 1 without a card.
+shifts and of the peak fit in it, the engine's ms a batch by CUDA events,
+the host's issue ms of a batch with nothing else running, and its peak
+device memory), then JSON lines of the medians of the device ms and of the
+issue ms by checkout and engine.  Exits with 1 without a card.
 """
 from __future__ import annotations
 
@@ -80,6 +81,7 @@ def turn(tree: str, folder: str) -> dict:
             p = cs.phase_profile(os.path.join(folder, sub), engine, **kw)
             out.setdefault(engine, []).append({
                 "device_ms": p["device_ms"], "ms_batch": p["ms_batch"],
+                "issue_ms": p["issue_ms"],
                 "peak_bytes": p["peak_bytes"],
                 "shift_ms": sum(t for k, t in p["kernels"].items()
                                 if "shift_windows" in k or "phase_table" in k),
@@ -112,10 +114,12 @@ def main() -> int:
                     print(f"{tree} {engine}: device {p['device_ms']:.3f} ms a batch "
                           f"(window shifts {p['shift_ms']:.3f}, peak fit "
                           f"{p['peakfit_ms']:.3f}), engine "
-                          f"{p['ms_batch']:.3f} ms, peak {p['peak_bytes']} B", flush=True)
-    print(json.dumps({tree: {e: statistics.median(p["device_ms"] for p in ps)
-                             for e, ps in by_engine.items()}
-                      for tree, by_engine in readings.items()}))
+                          f"{p['ms_batch']:.3f} ms, issue {p['issue_ms']:.3f} ms, "
+                          f"peak {p['peak_bytes']} B", flush=True)
+    for key in ("device_ms", "issue_ms"):
+        print(json.dumps({key: {tree: {e: statistics.median(p[key] for p in ps)
+                                       for e, ps in by_engine.items()}
+                                for tree, by_engine in readings.items()}}))
     return 0
 
 

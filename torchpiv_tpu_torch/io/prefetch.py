@@ -46,13 +46,20 @@ class PairPrefetcher:
         copy with CUDA events (see ``batches``).
       stream: the CUDA stream of the copies; None makes one for each
         iteration.
+      pinned: keep the batches of a CPU ``device`` in pinned host memory, for
+        a caller that places them on its devices itself (``ShardedPIV``).
+      background: a uint8 ``[H, W]`` CPU tensor subtracted with saturation,
+        in place, from every decoded batch on the decode worker (``a -
+        min(a, background)``: the same bits as a subtract on the device).
     """
 
     def __init__(self, dataset, batch_size: int, device: torch.device,
                  num_threads: int = 4, depth: int = 2,
                  first_batch_size: Optional[int] = None,
                  transfer_log: Optional[list] = None, spans: bool = False,
-                 stream: Optional[torch.cuda.Stream] = None):
+                 stream: Optional[torch.cuda.Stream] = None,
+                 pinned: bool = False,
+                 background: Optional[torch.Tensor] = None):
         self.dataset = dataset
         self.batch_size = max(1, batch_size)
         self.device = device
@@ -62,6 +69,8 @@ class PairPrefetcher:
         self.transfer_log = transfer_log
         self.spans = spans
         self.stream = stream
+        self.pinned = pinned
+        self.background = background
 
     def _decode(self, idxs: List[int], pinned: bool = False):
         """Decode one batch -> ``(ids, a, b)`` (numpy, or with ``pinned``
@@ -95,16 +104,23 @@ class PairPrefetcher:
         ``(a, b, ids, copied_event, span)`` or None when no pair of it is
         readable."""
         t0 = time.perf_counter()
-        decoded = self._decode(idxs, pinned=stream is not None)
+        decoded = self._decode(idxs, pinned=stream is not None or self.pinned)
         if decoded is None:
             return None
         ids, a, b = decoded
-        t1 = time.perf_counter()
         if isinstance(a, np.ndarray):
             a, b = torch.from_numpy(a), torch.from_numpy(b)
+        if self.background is not None:  # the decoded batch is ours
+            a.sub_(torch.minimum(a, self.background))
+            b.sub_(torch.minimum(b, self.background))
+        t1 = time.perf_counter()
         nbytes = a.nbytes + b.nbytes
         span = {"decode_s": t1 - t0, "pin_s": 0.0, "h2d": None} if self.spans else None
         if stream is None:
+            if self.pinned and not a.is_pinned():
+                a, b = a.pin_memory(), b.pin_memory()
+                if span is not None:
+                    span["pin_s"] = time.perf_counter() - t1
             if self.transfer_log is not None:
                 self.transfer_log.append((t1, time.perf_counter(), nbytes))
             return a, b, ids, None, span

@@ -195,12 +195,13 @@ def_windows_kernel(const float* __restrict__ frame,
                    const float* __restrict__ gxi, const float* __restrict__ gxj,
                    float* __restrict__ out,
                    int Hp, int Wp, int n_rows, int n_cols,
-                   int w, int step, int off, int M, int Q, int R) {
+                   int w, int step, int off, int row_start, int M, int Q,
+                   int R) {
   extern __shared__ float smem[];
   const int T = w + 2 * M + (kCubic ? 4 : 1);
   const int TP = tile_pitch(T);
   const int base = M + (kCubic ? 1 : 0);
-  const int r = blockIdx.y;  // grid row of the block's windows
+  const int r = blockIdx.y;  // row of the block's windows in the row block
   const int b = blockIdx.z;  // frame of the batch
   const int c0 = blockIdx.x * kWindows;
   const int n_mine = min(kWindows, n_cols - c0);
@@ -222,7 +223,7 @@ def_windows_kernel(const float* __restrict__ frame,
   auto stage = [&](int k) {
     float* tile = smem + (k % kStages) * T * TP;
     const int64_t wi = w0 + k;
-    const int ty = min(max(r * step + off + dy[wi] - base, 0), Hp - T);
+    const int ty = min(max((row_start + r) * step + off + dy[wi] - base, 0), Hp - T);
     const int tx = min(max((c0 + k) * step + off + dx[wi] - base, 0), Wp - T);
     const float* src = fb + (int64_t)ty * Wp + tx;
     int i = row0, j = col0;
@@ -303,12 +304,17 @@ extern "C" {
 // maps: [B, N] f32; out: [B, N, w, w] f32 with N = n_rows * n_cols.  The
 // tile side w + 2M + (4 | 1) is at most 129.  Launches on `stream` and
 // returns cudaGetLastError() of the launch (0 on success).
+// The launch serves window rows row_start .. row_start + n_rows - 1 of the
+// grid (the maps and out hold just those rows; 0 and all rows for the whole
+// grid); frame is the whole padded frame and a window's origin row is
+// (row_start + r) * step + off.
 int def_windows_f32(const float* frame, const int* dy, const int* dx,
                     const float* fy, const float* fx,
                     const float* gyi, const float* gyj,
                     const float* gxi, const float* gxj, float* out,
                     int B, int Hp, int Wp, int n_rows, int n_cols,
-                    int w, int step, int off, int M, int cubic, void* stream) {
+                    int w, int step, int off, int row_start, int M, int cubic,
+                    void* stream) {
   const int T = tile_side(w, M, cubic);
   if (w < 1 || M < 1 || T > 129) return (int)cudaErrorInvalidValue;
   const size_t smem = kStages * (size_t)T * tile_pitch(T) * sizeof(float);
@@ -322,7 +328,7 @@ int def_windows_f32(const float* frame, const int* dy, const int* dx,
   dim3 grid((n_cols + kWindows - 1) / kWindows, n_rows, B);
   kernel<<<grid, g.threads, smem, (cudaStream_t)stream>>>(
       frame, dy, dx, fy, fx, gyi, gyj, gxi, gxj, out,
-      Hp, Wp, n_rows, n_cols, w, step, off, M, g.Q, g.R);
+      Hp, Wp, n_rows, n_cols, w, step, off, row_start, M, g.Q, g.R);
   return (int)cudaGetLastError();
 }
 

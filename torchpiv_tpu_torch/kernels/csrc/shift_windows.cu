@@ -130,11 +130,12 @@ shift_windows_kernel(const float* __restrict__ frame,
                      const float* __restrict__ fx,
                      float* __restrict__ out,
                      int Hp, int Wp, int n_rows, int n_cols, int w, int step,
-                     int off, int lg, int packed, int n_cols_pad) {
+                     int off, int row_start, int lg, int packed,
+                     int n_cols_pad) {
   const int G = 1 << lg;
   const int lane = threadIdx.x & 31;
   const int c = lane & (G - 1);  // the lane's first column
-  const int r = blockIdx.y;      // grid row of the block's windows
+  const int r = blockIdx.y;      // row of the block's windows in the row block
   const int b = blockIdx.z;      // frame of the batch
   const int col = ((blockIdx.x * kWarps + (threadIdx.x >> 5)) << (5 - lg)) +
                   (lane >> lg);  // grid column of the group's window
@@ -142,7 +143,7 @@ shift_windows_kernel(const float* __restrict__ frame,
   const int64_t wi = ((int64_t)b * n_rows + r) * n_cols + min(col, n_cols - 1);
   const int T = w + 1;
 
-  const int ty = min(max(r * step + off + dy[wi], 0), Hp - T);
+  const int ty = min(max((row_start + r) * step + off + dy[wi], 0), Hp - T);
   const int tx = min(max(min(col, n_cols - 1) * step + off + dx[wi], 0), Wp - T);
   const float* src = frame + ((int64_t)b * Hp + ty) * Wp + tx;
   const piv::Blend blend = piv::blend_weights(fy[wi], fx[wi]);
@@ -197,13 +198,13 @@ shift_windows_kernel(const float* __restrict__ frame,
 template <int K>
 int launch(const float* frame, const int* dy, const int* dx, const float* fy,
            const float* fx, float* out, int B, int Hp, int Wp, int n_rows,
-           int n_cols, int w, int step, int off, int packed, int n_cols_pad,
-           const Lanes& l, cudaStream_t stream) {
+           int n_cols, int w, int step, int off, int row_start, int packed,
+           int n_cols_pad, const Lanes& l, cudaStream_t stream) {
   const int per_block = kWarps * l.P;  // windows a block
   dim3 grid((n_cols + per_block - 1) / per_block, n_rows, B);
   shift_windows_kernel<K><<<grid, kWarps * 32, 0, stream>>>(
-      frame, dy, dx, fy, fx, out, Hp, Wp, n_rows, n_cols, w, step, off, l.lg,
-      packed, n_cols_pad);
+      frame, dy, dx, fy, fx, out, Hp, Wp, n_rows, n_cols, w, step, off,
+      row_start, l.lg, packed, n_cols_pad);
   return (int)cudaGetLastError();
 }
 
@@ -238,15 +239,19 @@ extern "C" {
 // out: [B, N, w, w] f32 with N = n_rows * n_cols, or with `packed`
 // [B, n_rows, w, n_cols_pad * w].  w in 1..128.  Launches on `stream` and
 // returns cudaGetLastError() of the launch (0 on success).
+// The launch serves window rows row_start .. row_start + n_rows - 1 of the
+// grid (the maps and out hold just those rows; 0 and all rows for the whole
+// grid); frame is the whole padded frame and a window's origin row is
+// (row_start + r) * step + off.
 int shift_windows_f32(const float* frame, const int* dy, const int* dx,
                       const float* fy, const float* fx, float* out,
                       int B, int Hp, int Wp, int n_rows, int n_cols,
-                      int w, int step, int off, int packed, int n_cols_pad,
-                      void* stream) {
+                      int w, int step, int off, int row_start, int packed,
+                      int n_cols_pad, void* stream) {
   if (w < 1 || w > 128) return (int)cudaErrorInvalidValue;
   const Lanes l = lanes_for(w);
   PIV_FOR_COLUMNS(l.K, launch, frame, dy, dx, fy, fx, out, B, Hp, Wp, n_rows,
-                  n_cols, w, step, off, packed, n_cols_pad, l,
+                  n_cols, w, step, off, row_start, packed, n_cols_pad, l,
                   (cudaStream_t)stream);
 }
 

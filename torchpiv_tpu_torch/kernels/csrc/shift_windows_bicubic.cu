@@ -112,11 +112,11 @@ shift_windows_bicubic_kernel(const float* __restrict__ frame,
                              const float* __restrict__ fx,
                              float* __restrict__ out,
                              int Hp, int Wp, int n_rows, int n_cols, int w,
-                             int step, int off, int lg) {
+                             int step, int off, int row_start, int lg) {
   const int G = 1 << lg;
   const int lane = threadIdx.x & 31;
   const int c = lane & (G - 1);  // the lane's first column
-  const int r = blockIdx.y;      // grid row of the block's windows
+  const int r = blockIdx.y;      // row of the block's windows in the row block
   const int b = blockIdx.z;      // frame of the batch
   const int col = ((blockIdx.x * kWarps + (threadIdx.x >> 5)) << (5 - lg)) +
                   (lane >> lg);  // grid column of the group's window
@@ -126,7 +126,7 @@ shift_windows_bicubic_kernel(const float* __restrict__ frame,
   const int last = w + 2;  // the last tile row and column the stencil reads
 
   // tile origin = window origin + floor(shift) - 1 (the stencil's margin)
-  const int ty = min(max(r * step + off + dy[wi] - 1, 0), Hp - T);
+  const int ty = min(max((row_start + r) * step + off + dy[wi] - 1, 0), Hp - T);
   const int tx = min(max(min(col, n_cols - 1) * step + off + dx[wi] - 1, 0), Wp - T);
   const float* src = frame + ((int64_t)b * Hp + ty) * Wp + tx;
   float wy[4], wx[4];
@@ -168,12 +168,13 @@ shift_windows_bicubic_kernel(const float* __restrict__ frame,
 template <int K>
 int launch(const float* frame, const int* dy, const int* dx, const float* fy,
            const float* fx, float* out, int B, int Hp, int Wp, int n_rows,
-           int n_cols, int w, int step, int off, const Lanes& l,
+           int n_cols, int w, int step, int off, int row_start, const Lanes& l,
            cudaStream_t stream) {
   const int per_block = kWarps * l.P;  // windows a block
   dim3 grid((n_cols + per_block - 1) / per_block, n_rows, B);
   shift_windows_bicubic_kernel<K><<<grid, kWarps * 32, 0, stream>>>(
-      frame, dy, dx, fy, fx, out, Hp, Wp, n_rows, n_cols, w, step, off, l.lg);
+      frame, dy, dx, fy, fx, out, Hp, Wp, n_rows, n_cols, w, step, off,
+      row_start, l.lg);
   return (int)cudaGetLastError();
 }
 
@@ -201,14 +202,19 @@ extern "C" {
 // frame: [B, Hp, Wp] f32; dy, dx: [B, N] i32; fy, fx: [B, N] f32;
 // out: [B, N, w, w] f32 with N = n_rows * n_cols.  w in 1..128.  Launches
 // on `stream` and returns cudaGetLastError() of the launch (0 on success).
+// The launch serves window rows row_start .. row_start + n_rows - 1 of the
+// grid (the maps and out hold just those rows; 0 and all rows for the whole
+// grid); frame is the whole padded frame and a window's origin row is
+// (row_start + r) * step + off.
 int shift_windows_bicubic_f32(const float* frame, const int* dy, const int* dx,
                               const float* fy, const float* fx, float* out,
                               int B, int Hp, int Wp, int n_rows, int n_cols,
-                              int w, int step, int off, void* stream) {
+                              int w, int step, int off, int row_start,
+                              void* stream) {
   if (w < 1 || w > kMaxWind) return (int)cudaErrorInvalidValue;
   const Lanes l = piv::warp::lanes_for(w, kReach);
   PIV_FOR_SLOTS(l.K, launch, frame, dy, dx, fy, fx, out, B, Hp, Wp, n_rows,
-                n_cols, w, step, off, l, (cudaStream_t)stream);
+                n_cols, w, step, off, row_start, l, (cudaStream_t)stream);
 }
 
 // out[0..4]: registers a thread, bytes of local memory a thread (spills and

@@ -114,7 +114,8 @@ __global__ void shift_windows_mxu_kernel(const __nv_bfloat16* __restrict__ frame
                                          const float* __restrict__ fx,
                                          float* __restrict__ out,
                                          int Hp, int Wp, int pitch, int n_cols,
-                                         int n_win, int w, int step, int off) {
+                                         int n_win, int w, int step, int off,
+                                         int row_start) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = blockIdx.x;  // window, row-major over the grid
   const int b = blockIdx.y;  // frame of the batch
@@ -128,7 +129,9 @@ __global__ void shift_windows_mxu_kernel(const __nv_bfloat16* __restrict__ frame
   float* tile = reinterpret_cast<float*>(block + KP * ldb);
 
   int ty, tx;
-  piv::tile_origin(n, n_cols, step, off, dy[wi], dx[wi], Hp, Wp, T, &ty, &tx);
+  // the row block's window n is window n + row_start * n_cols of the grid
+  piv::tile_origin(n + row_start * n_cols, n_cols, step, off, dy[wi], dx[wi], Hp,
+                   Wp, T, &ty, &tx);
   const int s_row = ty % kAlign, s_col = tx % kAlign;
   const int ty0 = ty - s_row, tx0 = tx - s_col;
 
@@ -240,10 +243,15 @@ extern "C" {
 // zeros beyond column Wp; dy, dx: [B, N] i32; fy, fx: [B, N] f32; out:
 // [B, N, w, w] f32 with N = n_rows * n_cols.  Launches on `stream` and
 // returns cudaGetLastError() of the launch (0 on success).
+// The launch serves window rows row_start .. row_start + n_rows - 1 of the
+// grid (the maps and out hold just those rows; 0 and all rows for the whole
+// grid); frame is the whole padded frame and a window's origin row is
+// (row_start + r) * step + off.
 int shift_windows_mxu_f32(const void* frame, const int* dy, const int* dx,
                           const float* fy, const float* fx, float* out,
                           int B, int Hp, int Wp, int pitch, int n_rows,
-                          int n_cols, int w, int step, int off, void* stream) {
+                          int n_cols, int w, int step, int off, int row_start,
+                          void* stream) {
   if (pitch % kAlign != 0 || pitch < Wp) return (int)cudaErrorInvalidValue;
   const int T = w + 1;
   const int Tp = round_up16(T);
@@ -260,7 +268,7 @@ int shift_windows_mxu_f32(const void* frame, const int* dy, const int* dx,
   // one warp per 16-row strip of the padded tile
   shift_windows_mxu_kernel<<<grid, 32 * (Tp / 16), smem, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(frame), dy, dx, fy, fx, out, Hp, Wp,
-      pitch, n_cols, n_win, w, step, off);
+      pitch, n_cols, n_win, w, step, off, row_start);
   return (int)cudaGetLastError();
 }
 

@@ -68,20 +68,21 @@ shift_windows_phases_kernel(const __nv_bfloat16* __restrict__ frame,
                             const float* __restrict__ fx,
                             float* __restrict__ out,
                             int Hp, int Wp, int pitch, int n_rows, int n_cols,
-                            int w, int step, int off, int lg) {
+                            int w, int step, int off, int row_start, int lg) {
   piv::warp::bilinear_windows<K, rows_ahead<K>()>(
-      frame, dy, dx, fy, fx, out, Hp, Wp, pitch, n_rows, n_cols, w, step, off, lg);
+      frame, dy, dx, fy, fx, out, Hp, Wp, pitch, n_rows, n_cols, w, step, off,
+      row_start, lg);
 }
 
 template <int K>
 int launch(const __nv_bfloat16* frame, const int* dy, const int* dx,
            const float* fy, const float* fx, float* out, int B, int Hp, int Wp,
            int pitch, int n_rows, int n_cols, int w, int step, int off,
-           const Lanes& l, cudaStream_t stream) {
+           int row_start, const Lanes& l, cudaStream_t stream) {
   shift_windows_phases_kernel<K>
       <<<piv::warp::bilinear_grid(B, n_rows, n_cols, l), kWarps * 32, 0, stream>>>(
           frame, dy, dx, fy, fx, out, Hp, Wp, pitch, n_rows, n_cols, w, step, off,
-          l.lg);
+          row_start, l.lg);
   return (int)cudaGetLastError();
 }
 
@@ -102,15 +103,19 @@ extern "C" {
 // [B, N] i32; fy, fx: [B, N] f32; out: [B, N, w, w] f32 with
 // N = n_rows * n_cols.  w in 1..128.  Launches on `stream` and returns
 // cudaGetLastError() of the launch (0 on success).
+// The launch serves window rows row_start .. row_start + n_rows - 1 of the
+// grid (the maps and out hold just those rows; 0 and all rows for the whole
+// grid); frame is the whole padded frame and a window's origin row is
+// (row_start + r) * step + off.
 int shift_windows_phases_f32(const void* frame, const int* dy, const int* dx,
                              const float* fy, const float* fx, float* out,
                              int B, int Hp, int Wp, int pitch, int n_rows,
                              int n_cols, int w, int step, int off,
-                             void* stream) {
+                             int row_start, void* stream) {
   if (w < 1 || w > kMaxWind || pitch < Wp) return (int)cudaErrorInvalidValue;
   const Lanes l = piv::warp::lanes_for(w, kReach);
   PIV_FOR_SLOTS(l.K, launch, static_cast<const __nv_bfloat16*>(frame), dy, dx,
-                fy, fx, out, B, Hp, Wp, pitch, n_rows, n_cols, w, step, off, l,
+                fy, fx, out, B, Hp, Wp, pitch, n_rows, n_cols, w, step, off, row_start, l,
                 (cudaStream_t)stream);
 }
 

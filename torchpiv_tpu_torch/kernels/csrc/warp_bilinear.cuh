@@ -30,11 +30,12 @@ __device__ __forceinline__ void bilinear_windows(
     const T* __restrict__ frame, const int* __restrict__ dy,
     const int* __restrict__ dx, const float* __restrict__ fy,
     const float* __restrict__ fx, float* __restrict__ out, int Hp, int Wp,
-    int pitch, int n_rows, int n_cols, int w, int step, int off, int lg) {
+    int pitch, int n_rows, int n_cols, int w, int step, int off, int row_start,
+    int lg) {
   const int G = 1 << lg;
   const int lane = threadIdx.x & 31;
   const int c = lane & (G - 1);  // the lane's first column
-  const int r = blockIdx.y;      // grid row of the block's windows
+  const int r = blockIdx.y;      // row of the block's windows in the row block
   const int b = blockIdx.z;      // frame of the batch
   const int col = ((blockIdx.x * kWarps + (threadIdx.x >> 5)) << (5 - lg)) +
                   (lane >> lg);  // grid column of the group's window
@@ -42,7 +43,7 @@ __device__ __forceinline__ void bilinear_windows(
   const int64_t wi = ((int64_t)b * n_rows + r) * n_cols + min(col, n_cols - 1);
   const int T1 = w + 1;
 
-  const int ty = min(max(r * step + off + dy[wi], 0), Hp - T1);
+  const int ty = min(max((row_start + r) * step + off + dy[wi], 0), Hp - T1);
   const int tx = min(max(min(col, n_cols - 1) * step + off + dx[wi], 0), Wp - T1);
   const T* src = frame + ((int64_t)b * Hp + ty) * pitch + tx;
   const Blend blend = blend_weights(fy[wi], fx[wi]);

@@ -4,6 +4,8 @@
 For CPU tensors it runs the plain PyTorch version
 (``ops.deform.def_reference``); for CUDA tensors it launches the kernel on
 the current stream or raises.  ``def_windows.launches`` counts launches.
+``row_start``/``n_rows_local`` run it on a block of window rows, as the TPU
+kernel takes ``row0`` by scalar prefetch.
 """
 from __future__ import annotations
 
@@ -36,21 +38,22 @@ def check_tile(wind_size: int, margin: int, interp: str) -> None:
 
 
 def launch(ops: DefOperands, wind_size: int) -> torch.Tensor:
-    """Launch the kernel on CUDA ``DefOperands`` -> ``[B, N, w, w]``."""
+    """Launch the kernel on CUDA ``DefOperands`` -> ``[B, N, w, w]``, over
+    the operands' window rows."""
     B, Hp, Wp = ops.frame.shape
     dev = ops.frame.device
     out = torch.empty((B, ops.n_rows * ops.n_cols, wind_size, wind_size),
                       dtype=torch.float32, device=dev)
     fn = _build.function(
         "def_windows", "def_windows_f32",
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     with torch.cuda.device(dev):
         rc = fn(ops.frame.data_ptr(), ops.dy.data_ptr(), ops.dx.data_ptr(),
                 ops.fy.data_ptr(), ops.fx.data_ptr(),
                 ops.gyi.data_ptr(), ops.gyj.data_ptr(),
                 ops.gxi.data_ptr(), ops.gxj.data_ptr(), out.data_ptr(),
                 B, Hp, Wp, ops.n_rows, ops.n_cols, wind_size, ops.step, ops.off,
-                ops.margin, int(ops.cubic),
+                ops.row_start, ops.margin, int(ops.cubic),
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("def_windows", rc)
     def_windows.launches += 1
@@ -74,13 +77,17 @@ def def_windows(
     flat_wrap: bool = True,
     interp: str = "bilinear",
     out_dtype: torch.dtype = torch.float32,
+    row_start: int = 0,
+    n_rows_local: Optional[int] = None,
 ) -> torch.Tensor:
     """Deformed windows ``[B, N, w, w]`` float32 from ``[B, H, W]`` frames,
     ``[B, N]`` per-window centre shifts in pixels and ``[B, N]`` displacement
     gradients in px per px (``[N, w, w]`` from ``[H, W]`` and ``[N]``).  The
     offset applied at a pixel is ``vel + d/dx * joff + d/dy * ioff`` with
     ``ioff, joff`` its signed offsets from the window centre; the residual
-    beyond the centre's integer shift saturates at the margin."""
+    beyond the centre's integer shift saturates at the margin.
+    ``row_start``/``n_rows_local`` select a block of window rows (the maps
+    are then ``[B, n_rows_local * n_cols]``)."""
     check_tile(wind_size, margin, interp)
     if out_dtype != torch.float32:
         raise ValueError(f"def_windows stores float32 only, not {out_dtype}")
@@ -96,7 +103,8 @@ def def_windows(
     ops = def_operands(frame, *maps, frame_shape=frame_shape,
                        wind_size=wind_size, overlap=overlap,
                        max_shift=max_shift, margin=margin,
-                       flat_wrap=flat_wrap, interp=interp)
+                       flat_wrap=flat_wrap, interp=interp,
+                       row_start=row_start, n_rows_local=n_rows_local)
     if frame.device.type == "cpu":
         out = def_reference(ops, wind_size)
     else:

@@ -22,6 +22,11 @@ them: bilinear only, no ``packed`` output, float32 output.  ``"bf16"``,
 ``"bf16"`` reads the float32 frame itself and rounds each sample as it
 loads it; ``"lanephases"`` reads it as it is, on the same body.
 
+``row_start`` and ``n_rows_local`` run every kernel on a block of window
+rows (the maps and the output cover just those rows, the frame is the whole
+one): each kernel takes the block's first row and is launched over its
+rows only, as the TPU kernels take ``row0`` by scalar prefetch.
+
 ``packed=True`` (bilinear only) writes the lane-packed layout of the JAX
 package's pass-fusion kernels (``ops/packing.py``) straight from the kernel.
 The port's engine does not use it: its own kernels read ``[N, w, w]``.
@@ -67,7 +72,8 @@ def describe(wind_size: int, name: str = "shift_windows") -> Dict[str, int]:
 def launch(ops: ShiftOperands, wind_size: int, interp: str = "bilinear",
            packed: bool = False) -> torch.Tensor:
     """Launch the kernel on CUDA ``ShiftOperands`` -> ``[B, N, w, w]``, or
-    with ``packed`` (bilinear only) ``[B, n_rows, w, Lp]``."""
+    with ``packed`` (bilinear only) ``[B, n_rows, w, Lp]``, over the
+    operands' window rows."""
     cubic = interp == "bicubic"
     name = "shift_windows_bicubic" if cubic else "shift_windows"
     B, Hp, Wp = ops.frame.shape
@@ -82,13 +88,13 @@ def launch(ops: ShiftOperands, wind_size: int, interp: str = "bilinear",
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     fn = _build.function(
         name, f"{name}_f32",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * (8 + len(layout))
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * (9 + len(layout))
         + [ctypes.c_void_p])
     with torch.cuda.device(dev):
         rc = fn(ops.frame.data_ptr(), ops.dy.data_ptr(), ops.dx.data_ptr(),
                 ops.fy.data_ptr(), ops.fx.data_ptr(), out.data_ptr(),
                 B, Hp, Wp, ops.n_rows, ops.n_cols, wind_size, ops.step, ops.off,
-                *layout, torch.cuda.current_stream(dev).cuda_stream)
+                ops.row_start, *layout, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, rc)
     if interp == "bicubic":
         shift_windows_bicubic.launches += 1
@@ -127,12 +133,12 @@ def launch_variant(ops: ShiftOperands, wind_size: int, variant: str,
                       dtype=torch.float32, device=dev)
     fn = _build.function(
         name, f"{name}_f32",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     with torch.cuda.device(dev):
         rc = fn(frame.data_ptr(), ops.dy.data_ptr(), ops.dx.data_ptr(),
                 ops.fy.data_ptr(), ops.fx.data_ptr(), out.data_ptr(), B, Hp, Wp,
                 pitch, ops.n_rows, ops.n_cols, wind_size, ops.step, ops.off,
-                torch.cuda.current_stream(dev).cuda_stream)
+                ops.row_start, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, rc)
     VARIANT_WRAPPERS[variant].launches += 1
     return out
@@ -152,6 +158,8 @@ def shift_windows(
     out_dtype: torch.dtype = torch.float32,
     packed: bool = False,
     variant: str = "rolls",
+    row_start: int = 0,
+    n_rows_local: Optional[int] = None,
 ) -> torch.Tensor:
     """Per-window shifted windows ``[B, N, w, w]`` float32 from ``[B, H, W]``
     frames and ``[B, N]`` shifts in pixels (``[N, w, w]`` from ``[H, W]`` and
@@ -161,7 +169,10 @@ def shift_windows(
     (``ops.packing.pack_windows`` of the standard output; bilinear only).
     ``variant`` selects one of the bilinear kernels (``ops.shifts.VARIANTS``);
     any other than ``"rolls"`` refuses bicubic, ``packed`` and an
-    ``out_dtype`` other than float32, as the TPU wrapper does."""
+    ``out_dtype`` other than float32, as the TPU wrapper does.
+    ``row_start``/``n_rows_local`` select window rows ``row_start ..
+    row_start + n_rows_local - 1`` (the maps are then ``[B, n_rows_local *
+    n_cols]``; the default is the whole grid)."""
     if interp not in MAX_WIND:
         raise ValueError(f"unknown interp {interp!r}")
     if variant not in VARIANTS:
@@ -190,7 +201,8 @@ def shift_windows(
         raise ValueError("frame and shift maps must be on one device")
     ops = shift_operands(frame, vel_x, vel_y, frame_shape=frame_shape,
                          wind_size=wind_size, overlap=overlap,
-                         max_shift=max_shift, flat_wrap=flat_wrap, interp=interp)
+                         max_shift=max_shift, flat_wrap=flat_wrap, interp=interp,
+                         row_start=row_start, n_rows_local=n_rows_local)
     if frame.device.type == "cpu":
         if interp == "bicubic":
             out = blend_reference_bicubic(ops, wind_size)

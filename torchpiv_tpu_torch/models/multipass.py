@@ -198,11 +198,14 @@ class MultipassPIV(nn.Module):
             return frame
         return frame.masked_fill(self.frame_mask, 0.0)
 
-    def _apply_window_mask(self, p, u, v, inval):
-        """Force pass-p masked windows invalid with zero displacement."""
+    def _apply_window_mask(self, p, u, v, inval, rows=None):
+        """Force pass-p masked windows invalid with zero displacement
+        (``rows``: the block of window rows the fields hold)."""
         m = self.window_masked[p]
         if m is None:
             return u, v, inval
+        if rows is not None:
+            m = m[rows[0]:rows[0] + rows[1]]
         m = m.expand(u.shape)
         return (u.masked_fill(m, 0.0), v.masked_fill(m, 0.0),
                 m if inval is None else inval | m)
@@ -270,26 +273,34 @@ class MultipassPIV(nn.Module):
             max_shift=cfg.max_shift, dc_normalize=dc_normalize)
 
     def first_pass(self, frame_a: torch.Tensor, frame_b: torch.Tensor,
-                   want_second: bool = False):
+                   want_second: bool = False, rows=None):
         """Zero-order pass on float32 ``[B, H, W]`` frames (``forward`` has
         zeroed the pixels that ``frame_mask`` excludes).  ``want_second``
         (single-pass runs with the second-peak fallback) appends the
-        candidate displacement fields to the result."""
+        candidate displacement fields to the result.  ``rows=(org, n)``
+        computes only window rows ``org .. org+n-1`` (the window split of
+        ``parallel.ShardedPIV``), from the frame band that holds them, with
+        the unfused correlation and fit."""
         cfg = self.config
         w, o = self.schedule[0]
         B = frame_a.shape[0]
+        R, C = self.field_shapes[0]
+        if rows is not None:
+            org, R = rows
+            top = org * (w - o)
+            frame_a = frame_a[:, top:top + (R - 1) * (w - o) + w]
+            frame_b = frame_b[:, top:top + (R - 1) * (w - o) + w]
         cand = None
-        if self._use_fused():
+        if rows is None and self._use_fused():
             # zero shifts: plain extraction; the mean normalisation scales
             # the map inside the kernel
-            z = torch.zeros((B, self.field_shapes[0][0] * self.field_shapes[0][1]),
-                            dtype=torch.float32, device=frame_a.device)
+            z = torch.zeros((B, R * C), dtype=torch.float32, device=frame_a.device)
             u, v, inval = self._fused_pass(0, frame_a, frame_b, z, z, z, z,
                                            dc_normalize=True)
         else:
             aa = extract_windows(frame_a, w, o)
             bb = extract_windows(frame_b, w, o)
-            if self._use_split():
+            if rows is None and self._use_split():
                 u, v, inval = self._corrfit(aa, bb, dc_normalize=True)
             else:
                 wgt = self.weight_0
@@ -301,26 +312,36 @@ class MultipassPIV(nn.Module):
                     corr = self._correlate(0, mean_normalize(aa) * wgt,
                                            mean_normalize(bb) * wgt)
                 u, v, inval, *cand = self._peakfit(corr, cfg.validate, want_second)
-        shape = (B, *self.field_shapes[0])
+        shape = (B, R, C)
         u, v, inval = self._apply_window_mask(
             0, u.reshape(shape), v.reshape(shape),
-            None if inval is None else inval.reshape(shape))
+            None if inval is None else inval.reshape(shape), rows)
         if want_second:
             (cu, cv), = cand
             return u, v, inval, (cu.reshape(shape), cv.reshape(shape))
         return u, v, inval
 
-    def _refine_pass(self, p, frame_a, frame_b, u, v, inval, want_second=False):
+    def _refine_pass(self, p, frame_a, frame_b, u, v, inval, want_second=False,
+                     rows=None):
         """One CWS/DWS/DEF refinement pass from grid p-1 to grid p.
         ``want_second`` (the last pass with the second-peak fallback)
-        appends the candidate fields ``2 * half-shift + second-peak fit``."""
+        appends the candidate fields ``2 * half-shift + second-peak fit``.
+        ``rows=(org, n)`` computes only window rows ``org .. org+n-1`` of
+        grid p from the full fields of grid p-1 (the window split of
+        ``parallel.ShardedPIV``): the predictor from those rows of ``Ay``,
+        the row-block kernels, the unfused correlation and fit."""
         cfg = self.config
         w, o = self.schedule[p]
         B = frame_a.shape[0]
+        R, C = self.field_shapes[p]
         Ay, Ax = self.upsamplers[p - 1]
+        Ay_rows = Ay
+        if rows is not None:
+            org, R = rows
+            Ay_rows = Ay[org:org + R]
 
-        def up(field):  # spline predictor, [B, R0, C0] -> [B, R1, C1]
-            return torch.matmul(torch.matmul(Ay, field.to(torch.float32)), Ax.T)
+        def up(field, A=Ay_rows):  # spline predictor, [B, R0, C0] -> [B, R, C1]
+            return torch.matmul(torch.matmul(A, field.to(torch.float32)), Ax.T)
 
         u0 = up(u)
         v0 = up(v)
@@ -329,6 +350,8 @@ class MultipassPIV(nn.Module):
 
         kw = dict(frame_shape=cfg.frame_shape, wind_size=w, overlap=o,
                   max_shift=cfg.max_shift, flat_wrap=cfg.edge_exact)
+        if rows is not None:
+            kw.update(row_start=org, n_rows_local=R)
         if cfg.multipass_mode in ("CWS", "DEF"):
             # half-shift from the PRE-zeroed predictor
             u2 = u0 / 2.0
@@ -344,7 +367,7 @@ class MultipassPIV(nn.Module):
             v2 = torch.round(v0 / 2.0)
         sx, sy = u2.reshape(B, -1), v2.reshape(B, -1)
         fused_result = None
-        if cfg.multipass_mode != "DEF" and self._use_fused():
+        if cfg.multipass_mode != "DEF" and rows is None and self._use_fused():
             # DWS shifts are integer-valued: the kernel's blend degenerates
             # to the floor corner, the integer tile copy
             fused_result = self._fused_pass(p, frame_a, frame_b, -sx, -sy, sx, sy)
@@ -352,9 +375,18 @@ class MultipassPIV(nn.Module):
             # locally linearised displacement: the half-shift plus its
             # gradient across the window, symmetric between the frames
             step = float(w - o)
-            maps = [sx, sy] + [g.reshape(B, -1) for g in (
-                _gradient(u2, step, -1), _gradient(u2, step, -2),
-                _gradient(v2, step, -1), _gradient(v2, step, -2))]
+            u2f, v2f = u2, v2
+            if rows is not None:
+                # the gradients need the rows on either side of the block:
+                # differentiate the full predictor, then take the block
+                u2f, v2f = up(u, Ay) / 2.0, up(v, Ay) / 2.0
+                u2, v2 = u2f[:, org:org + R], v2f[:, org:org + R]
+                sx, sy = u2.reshape(B, -1), v2.reshape(B, -1)
+            grads = [_gradient(u2f, step, -1), _gradient(u2f, step, -2),
+                     _gradient(v2f, step, -1), _gradient(v2f, step, -2)]
+            if rows is not None:
+                grads = [g[:, org:org + R] for g in grads]
+            maps = [sx, sy] + [g.reshape(B, -1) for g in grads]
             kw.update(margin=cfg.def_margin, interp=cfg.cws_interp)
             aa = def_windows(frame_a, *(-m for m in maps), **kw)
             bb = def_windows(frame_b, *maps, **kw)
@@ -369,7 +401,7 @@ class MultipassPIV(nn.Module):
         cand = None
         if fused_result is not None:
             du, dv, new_inval = fused_result
-        elif self._use_split():
+        elif rows is None and self._use_split():
             du, dv, new_inval = self._corrfit(aa, bb)
         else:
             wgt = getattr(self, f"weight_{p}")
@@ -377,7 +409,7 @@ class MultipassPIV(nn.Module):
                 aa, bb = aa * wgt, bb * wgt
             corr = self._correlate(p, aa, bb)
             du, dv, new_inval, *cand = self._peakfit(corr, cfg.validate, want_second)
-        shape = (B, *self.field_shapes[p])
+        shape = (B, R, C)
         du = du.reshape(shape)
         dv = dv.reshape(shape)
         if new_inval is not None:
@@ -393,7 +425,7 @@ class MultipassPIV(nn.Module):
             mask_v = mask_v | new_inval
         u, v, new_inval = self._apply_window_mask(
             p, torch.where(mask_u, u0, u_new), torch.where(mask_v, v0, v_new),
-            new_inval)
+            new_inval, rows)
         if want_second:
             # the same half-shift the first fit refines, plus the second
             # peak's residual fit
@@ -442,6 +474,23 @@ class MultipassPIV(nn.Module):
                 inval = inval & ~ok
         return u, v, inval
 
+    def post_pass(self, u, v, inval, cand=None):
+        """The field operations after the last pass on ``[B, R, C]`` fields,
+        in order: velocity limits and the global sigma test, the median
+        filter, the second-peak fallback (``cand``: the candidate fields,
+        or None) and ``infill="fused"``."""
+        cfg = self.config
+        inval = self._apply_global_filters(u, v, inval)
+        if cfg.median_filter is not None:
+            inval = apply_median_filter(u, v, inval, cfg.median_filter,
+                                        cfg.median_threshold)
+        if cand is not None and inval is not None:
+            u, v, inval = self._apply_second_peak_fallback(u, v, inval, cand)
+        if cfg.infill == "fused" and inval is not None:
+            u = fused_infill(u.masked_fill(inval, torch.nan), inval)
+            v = fused_infill(v.masked_fill(inval, torch.nan), inval)
+        return u, v, inval
+
     @torch.no_grad()
     def forward(self, frame_a: torch.Tensor, frame_b: torch.Tensor):
         """Raw frames (``[B, H, W]`` or ``[H, W]``, any real dtype) ->
@@ -465,15 +514,7 @@ class MultipassPIV(nn.Module):
         for p in range(1, last + 1):
             u, v, inval, *cand = self._refine_pass(
                 p, frame_a, frame_b, u, v, inval, want_second=want and p == last)
-        inval = self._apply_global_filters(u, v, inval)
-        if cfg.median_filter is not None:
-            inval = apply_median_filter(u, v, inval, cfg.median_filter,
-                                        cfg.median_threshold)
-        if cand and inval is not None:
-            u, v, inval = self._apply_second_peak_fallback(u, v, inval, cand[0])
-        if cfg.infill == "fused" and inval is not None:
-            u = fused_infill(u.masked_fill(inval, torch.nan), inval)
-            v = fused_infill(v.masked_fill(inval, torch.nan), inval)
+        u, v, inval = self.post_pass(u, v, inval, cand[0] if cand else None)
         if single:
             u, v = u[0], v[0]
             inval = None if inval is None else inval[0]

@@ -32,6 +32,11 @@ centre.
 With ``flat_wrap`` the frame is padded by ``S + M + 1`` (``S + M + 3``
 bicubic) so that edge windows reproduce the reference's flat-index clamped
 addressing and the tile clamp never binds.
+
+``row_start`` and ``n_rows_local`` select a block of window rows as in
+``ops.shifts``: the maps and the output cover just those rows, the frame is
+the whole frame, and a window's origin row is ``(row_start + r) * step +
+off``.
 """
 from __future__ import annotations
 
@@ -46,7 +51,8 @@ from .shifts import (flat_wrap_pad, gather_tiles, split_shift, window_grid,
 class DefOperands(NamedTuple):
     """What the DEF kernel reads: the padded float32 frames ``[B, Hp, Wp]``,
     the per-window integer and fractional centre shifts, the four gradient
-    maps in the kernel's order (all ``[B, N]``), and the geometry."""
+    maps in the kernel's order (all ``[B, N]``), and the geometry: ``n_rows``
+    window rows from grid row ``row_start`` on."""
 
     frame: torch.Tensor
     dy: torch.Tensor  # int32
@@ -63,6 +69,7 @@ class DefOperands(NamedTuple):
     step: int
     margin: int
     cubic: bool
+    row_start: int = 0
 
 
 def def_operands(
@@ -81,9 +88,12 @@ def def_operands(
     margin: int = 2,
     flat_wrap: bool = True,
     interp: str = "bilinear",
+    row_start: int = 0,
+    n_rows_local: Optional[int] = None,
 ) -> DefOperands:
     """Pad the ``[B, H, W]`` frames and prepare the ``[B, N]`` maps as the
-    TPU kernel's wrapper does (``def_pallas.py``)."""
+    TPU kernel's wrapper does (``def_pallas.py``); with a row block the maps
+    cover window rows ``row_start .. row_start + n_rows_local - 1``."""
     if interp not in ("bilinear", "bicubic"):
         raise ValueError(f"unknown interp {interp!r}")
     if margin < 1:
@@ -91,7 +101,8 @@ def def_operands(
     w = wind_size
     cubic = interp == "bicubic"
     maps = (vel_x, vel_y, dudx, dudy, dvdx, dvdy)
-    n_rows, n_cols = window_grid(frame, maps, frame_shape, w, overlap)
+    n_rows, n_cols = window_grid(frame, maps, frame_shape, w, overlap,
+                                 row_start, n_rows_local)
     S = max_shift if max_shift is not None else max(w // 2, 1)
     T = w + 2 * margin + (4 if cubic else 1)
     frame = frame.to(torch.float32)
@@ -110,7 +121,8 @@ def def_operands(
 
     return DefOperands(frame.contiguous(), dy, dx, fy, fx,
                        f32(dvdy), f32(dvdx), f32(dudy), f32(dudx),
-                       off, n_rows, n_cols, w - overlap, margin, cubic)
+                       off, n_rows, n_cols, w - overlap, margin, cubic,
+                       int(row_start))
 
 
 def keys_weight(d: torch.Tensor) -> torch.Tensor:
@@ -135,7 +147,8 @@ def def_reference(ops: DefOperands, wind_size: int) -> torch.Tensor:
     n_tap = 4 if ops.cubic else 2
     B, Hp, Wp = ops.frame.shape
     dev = ops.frame.device
-    row0, col0 = padded_origins(ops.n_rows, ops.n_cols, ops.step, ops.off, dev)
+    row0, col0 = padded_origins(ops.n_rows, ops.n_cols, ops.step, ops.off, dev,
+                                ops.row_start)
     ty = (row0 + ops.dy - base).clamp(0, Hp - T)
     tx = (col0 + ops.dx - base).clamp(0, Wp - T)
     tile = gather_tiles(ops.frame, ty, tx, T).reshape(B, -1, T * T)
@@ -272,7 +285,7 @@ def def_block_steps(ops: DefOperands, wind_size: int) -> torch.Tensor:
     def stage(k, buffers):
         wi, c, _ = window(k)
         dy, dx = ops.dy.reshape(-1)[wi], ops.dx.reshape(-1)[wi]
-        ty = (r * ops.step + ops.off + dy - base).clamp(0, Hp - T)
+        ty = ((ops.row_start + r) * ops.step + ops.off + dy - base).clamp(0, Hp - T)
         tx = (c * ops.step + ops.off + dx - base).clamp(0, Wp - T)
         idx = (ty * Wp + tx)[..., None] + elem
         vals = torch.gather(flat, 1, idx.reshape(B, -1)).reshape(*bshape, -1)

@@ -70,8 +70,9 @@ def correlation_to_displacement(
     fdt = corr.dtype
 
     flat = corr.reshape(n, kd)
-    eps = torch.tensor(EPS, dtype=fdt, device=corr.device)
-    shift = eps - flat.amin(dim=-1) if min_subtract else eps
+    # EPS as a Python scalar (rounded to the maps' dtype by the ops): a
+    # tensor made on a CUDA device would wait for the device here
+    shift = EPS - flat.amin(dim=-1) if min_subtract else EPS
     m = torch.argmax(flat, dim=-1)
 
     def take(idx):

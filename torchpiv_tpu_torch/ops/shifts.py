@@ -32,6 +32,14 @@ These differ from the XLA ``cws_shift``/``dws_shift`` of the JAX package
 (per-pixel weights, no clamp).  With ``flat_wrap`` the frame is padded by
 ``flat_wrap_pad`` so edge windows reproduce the reference's flat-index
 clamped addressing.
+
+Row blocks (``row_start``, ``n_rows_local``; the TPU kernels' ``row0``
+scalar): the operands then cover window rows ``row_start .. row_start +
+n_rows_local - 1`` of the grid, the maps and the output ``[B, n_rows_local *
+n_cols]`` and ``[B, n_rows_local * n_cols, w, w]``, and a window's origin row
+is ``(row_start + r) * step + off``.  The frame stays the whole frame, so a
+tile clamps to the full frame as it does in a full launch: each block equals
+the same rows of the full call bit for bit.
 """
 from __future__ import annotations
 
@@ -71,7 +79,9 @@ class ShiftOperands(NamedTuple):
     """What the shift kernel reads: the padded float32 frames ``[B, Hp, Wp]``,
     the per-window integer parts ``dy, dx`` (int32 ``[B, N]``) and fractional
     parts ``fy, fx`` (float32 ``[B, N]``), the window-origin offset into the
-    padded frame, and the window grid."""
+    padded frame, and the window grid: ``n_rows`` rows from grid row
+    ``row_start`` on (the whole grid with ``row_start = 0``), ``N = n_rows *
+    n_cols``."""
 
     frame: torch.Tensor
     dy: torch.Tensor
@@ -82,13 +92,25 @@ class ShiftOperands(NamedTuple):
     n_rows: int
     n_cols: int
     step: int
+    row_start: int = 0
 
 
 def window_grid(frame: torch.Tensor, maps, frame_shape: Tuple[int, int],
-                wind_size: int, overlap: int) -> Tuple[int, int]:
-    """The ``(n_rows, n_cols)`` window grid, after checking that the
-    ``[B, H, W]`` frames and the ``[B, N]`` per-window maps fit it."""
+                wind_size: int, overlap: int, row_start: int = 0,
+                n_rows_local: Optional[int] = None) -> Tuple[int, int]:
+    """The ``(n_rows, n_cols)`` window grid, or with a row block its
+    ``(n_rows_local, n_cols)``, after checking that the block lies in the
+    grid and that the ``[B, H, W]`` frames and the ``[B, N]`` per-window maps
+    fit it."""
     n_rows, n_cols = get_field_shape(frame_shape, wind_size, overlap)
+    row_start = int(row_start)
+    if n_rows_local is None:
+        n_rows_local = n_rows - row_start
+    if not (0 <= row_start and 1 <= n_rows_local
+            and row_start + n_rows_local <= n_rows):
+        raise ValueError(f"row block {row_start}..{row_start + n_rows_local - 1} "
+                         f"is not inside the {n_rows} window rows")
+    n_rows = n_rows_local
     if tuple(frame.shape[-2:]) != tuple(frame_shape):
         raise ValueError(f"frame shape {tuple(frame.shape[-2:])} != {tuple(frame_shape)}")
     want = (frame.shape[0], n_rows * n_cols)
@@ -119,11 +141,12 @@ def gather_tiles(frame: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor,
                         idx.reshape(B, -1)).reshape(*idx.shape)
 
 
-def padded_origins(n_rows: int, n_cols: int, step: int, off: int, device):
-    """Flat ``[N]`` row and column origins of the windows in a frame padded
-    by ``off``."""
+def padded_origins(n_rows: int, n_cols: int, step: int, off: int, device,
+                   row_start: int = 0):
+    """Flat ``[N]`` row and column origins of the windows of grid rows
+    ``row_start .. row_start + n_rows - 1`` in a frame padded by ``off``."""
     n = torch.arange(n_rows * n_cols, device=device)
-    row0 = torch.div(n, n_cols, rounding_mode="floor") * step + off
+    row0 = (row_start + torch.div(n, n_cols, rounding_mode="floor")) * step + off
     col0 = (n % n_cols) * step + off
     return row0, col0
 
@@ -139,14 +162,20 @@ def shift_operands(
     max_shift: Optional[int] = None,
     flat_wrap: bool = True,
     interp: str = "bilinear",
+    row_start: int = 0,
+    n_rows_local: Optional[int] = None,
 ) -> ShiftOperands:
     """Pad the ``[B, H, W]`` frames and split the ``[B, N]`` shifts as the
-    TPU kernel's wrapper does (``shift_pallas.py``, clip/floor/frac)."""
+    TPU kernel's wrapper does (``shift_pallas.py``, clip/floor/frac); with
+    a row block the maps cover window rows ``row_start .. row_start +
+    n_rows_local - 1`` (``n_rows_local`` defaults to the rest of the
+    grid)."""
     if interp not in ("bilinear", "bicubic"):
         raise ValueError(f"unknown interp {interp!r}")
     w = wind_size
     cubic = interp == "bicubic"
-    n_rows, n_cols = window_grid(frame, (vel_x, vel_y), frame_shape, w, overlap)
+    n_rows, n_cols = window_grid(frame, (vel_x, vel_y), frame_shape, w, overlap,
+                                 row_start, n_rows_local)
     S = max_shift if max_shift is not None else max(w // 2, 1)
     T = w + (4 if cubic else 1)
     frame = frame.to(torch.float32)
@@ -159,7 +188,7 @@ def shift_operands(
     dy, fy = split_shift(vel_y, S)
     dx, fx = split_shift(vel_x, S)
     return ShiftOperands(frame.contiguous(), dy, dx, fy, fx,
-                         off, n_rows, n_cols, w - overlap)
+                         off, n_rows, n_cols, w - overlap, int(row_start))
 
 
 def blend_reference(ops: ShiftOperands, wind_size: int) -> torch.Tensor:
@@ -169,7 +198,7 @@ def blend_reference(ops: ShiftOperands, wind_size: int) -> torch.Tensor:
     T = w + 1
     B, Hp, Wp = ops.frame.shape
     row0, col0 = padded_origins(ops.n_rows, ops.n_cols, ops.step, ops.off,
-                                ops.frame.device)
+                                ops.frame.device, ops.row_start)
     ty = (row0 + ops.dy).clamp(0, Hp - T)
     tx = (col0 + ops.dx).clamp(0, Wp - T)
     tile = gather_tiles(ops.frame, ty, tx, T)
@@ -244,7 +273,7 @@ def _warp_grid(ops: ShiftOperands, w: int, reach: int, margin: int) -> _WarpGrid
     c = (lane & (G - 1)).expand(col.shape)
     win = r * n_cols + col.clamp(max=n_cols - 1)
     dy, dx, fy, fx = (m[:, win] for m in (ops.dy, ops.dx, ops.fy, ops.fx))
-    ty = (r * ops.step + ops.off + dy - margin).clamp(0, Hp - T)
+    ty = ((ops.row_start + r) * ops.step + ops.off + dy - margin).clamp(0, Hp - T)
     tx = (col.clamp(max=n_cols - 1) * ops.step + ops.off + dx - margin).clamp(0, Wp - T)
     return _WarpGrid(G, K, r, col, c, lane & ~(G - 1), col < n_cols, win,
                      c[..., None] + G * torch.arange(K + 1), ty, tx, fy, fx)
@@ -483,7 +512,7 @@ def blend_reference_bicubic(ops: ShiftOperands, wind_size: int) -> torch.Tensor:
     T = w + 4
     B, Hp, Wp = ops.frame.shape
     row0, col0 = padded_origins(ops.n_rows, ops.n_cols, ops.step, ops.off,
-                                ops.frame.device)
+                                ops.frame.device, ops.row_start)
     # tile origin = window origin + floor(shift) - 1 (stencil margin)
     ty = (row0 + ops.dy - 1).clamp(0, Hp - T)
     tx = (col0 + ops.dx - 1).clamp(0, Wp - T)
@@ -512,10 +541,13 @@ def shift_windows_reference(
     flat_wrap: bool = True,
     interp: str = "bilinear",
     variant: str = "rolls",
+    row_start: int = 0,
+    n_rows_local: Optional[int] = None,
 ) -> torch.Tensor:
     """Shifted windows ``[B, N, w, w]`` float32 from ``[B, H, W]`` frames and
     ``[B, N]`` per-window shifts (``[N, w, w]`` from ``[H, W]`` and ``[N]``);
-    ``variant`` (bilinear only) is one of ``VARIANTS``."""
+    ``variant`` (bilinear only) is one of ``VARIANTS``; ``row_start`` and
+    ``n_rows_local`` select a block of window rows (``shift_operands``)."""
     if variant != "rolls" and interp != "bilinear":
         raise ValueError("bicubic requires the plain 'rolls' variant")
     batched = frame.dim() == 3
@@ -523,7 +555,8 @@ def shift_windows_reference(
         frame, vel_x, vel_y = frame[None], vel_x[None], vel_y[None]
     ops = shift_operands(frame, vel_x, vel_y, frame_shape=frame_shape,
                          wind_size=wind_size, overlap=overlap,
-                         max_shift=max_shift, flat_wrap=flat_wrap, interp=interp)
+                         max_shift=max_shift, flat_wrap=flat_wrap, interp=interp,
+                         row_start=row_start, n_rows_local=n_rows_local)
     if interp == "bicubic":
         out = blend_reference_bicubic(ops, wind_size)
     else:

@@ -15,6 +15,11 @@ own CUDA stream, packs the results into one ``[B, 3, R, C]`` float32 tensor
 (``u``, ``v``, invalid) and copies it with ``non_blocking=True`` into a
 pinned host buffer, with at most two batches issued and not yet drained; a
 drainer thread waits for each copy and fans the host tail over a pool.
+
+With ``mesh=`` the engine runs as a ``parallel.ShardedPIV`` over the mesh:
+batches stay in pinned host memory and ``ShardedPIV`` places each shard's
+slice on its device; the packed results land on the mesh's first device,
+from which the feeder copies them to the host as without a mesh.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from .io.prefetch import PairPrefetcher
 from .io.preprocess import PreprocessedPairs, resolve_preprocess
 from .models.multipass import MultipassPIV
 from .ops.infill import fill_missing_values, interpolate_borders
+from .parallel.sharded import ShardedPIV
 from .utils.device import resolve_device
 
 log = logging.getLogger("torchpiv_tpu_torch")
@@ -128,6 +134,17 @@ class OfflinePIV:
     ``mask_threshold``: masked windows come out with zero displacement.
     ``device`` defaults to the CUDA card.
 
+    ``mesh`` (a ``parallel.mesh.Mesh``) runs the engine as ``ShardedPIV``
+    over it, as the JAX ``OfflinePIV(mesh=)`` does: the engine is built on
+    the mesh's first device (``device`` is not used), ``batch_size`` is
+    rounded up to a multiple of the pairs axis, every batch (the first one
+    too) is a full batch, a short last batch is padded by repeating its last
+    pair (the padded fields are dropped), and batches stay in pinned host
+    memory until ``ShardedPIV`` places them.  ``background`` is subtracted
+    on the host, in place, with the same saturation, by the decode workers.  The spans and the
+    transfer log are kept as without a mesh; ``h2d_ms`` is None, since the
+    shards' copies are part of the engine call.
+
     Two attributes, None by default, switch on accounting that changes no
     result; set them to a list before calling the instance:
 
@@ -167,6 +184,7 @@ class OfflinePIV:
         decode_threads: int = 4,
         skip_pairs: int = 0,
         max_pairs: Optional[int] = None,
+        mesh=None,
         background="none",
         preprocess="none",
         engine_options: Optional[dict] = None,
@@ -179,7 +197,10 @@ class OfflinePIV:
         self._batch = max(1, batch_size)
         # a small first batch: the first field arrives sooner
         self._first_batch = min(4, self._batch)
-        self._device = resolve_device(device)
+        self._mesh = mesh
+        self._sharded: Optional[ShardedPIV] = None
+        self._device = (mesh.device_list[0] if mesh is not None
+                        else resolve_device(device))
         self._decode_threads = decode_threads
         self._dataset = PIVDataset(folder, file_fmt, folder_mode)
         if skip_pairs:  # resume support: pairs are consumed in sorted order
@@ -201,8 +222,10 @@ class OfflinePIV:
         else:
             background = np.asarray(background, dtype=np.uint8)
         self._background: Optional[torch.Tensor] = None
-        if background is not None:  # on the device once
-            self._background = torch.from_numpy(background).to(self._device)
+        if background is not None:  # on the device once (on the host: mesh)
+            self._background = torch.from_numpy(background)
+            if mesh is None:
+                self._background = self._background.to(self._device)
         self.transfer_log: Optional[list] = None
         self.span_log: Optional[list] = None
         # the feeder's stream and the prefetcher's copy stream, made at the
@@ -231,6 +254,12 @@ class OfflinePIV:
                                             frame_mask=frame_mask,
                                             mask_threshold=mask_threshold)
                 break
+        if mesh is not None and self._engine is not None:
+            self._sharded = ShardedPIV(self._engine, mesh)
+            npairs = mesh.shape[self._sharded.pair_axis]
+            self._batch = -(-self._batch // npairs) * npairs
+            # uniform batches: each one divides the pairs axis
+            self._first_batch = self._batch
 
     @property
     def engine(self) -> Optional[MultipassPIV]:
@@ -257,6 +286,7 @@ class OfflinePIV:
         if self._engine is None:
             return
         engine = self._engine
+        sharded = self._sharded
         dev = self._device
         cuda = dev.type == "cuda"
         bg = self._background
@@ -273,10 +303,17 @@ class OfflinePIV:
             self._streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
         feed, copies = self._streams if cuda else (None, None)
         prefetch = PairPrefetcher(
-            self._dataset, self._batch, dev, num_threads=self._decode_threads,
+            # with a mesh the batches stay on the host, pinned for the
+            # shards' asynchronous copies
+            self._dataset, self._batch, dev if sharded is None else torch.device("cpu"),
+            num_threads=self._decode_threads,
             # three batches in flight keep the copies fed across the seams
             depth=3, first_batch_size=self._first_batch,
-            transfer_log=self.transfer_log, spans=timing, stream=copies)
+            transfer_log=self.transfer_log, spans=timing,
+            stream=copies if sharded is None else None,
+            pinned=sharded is not None and cuda,
+            # with a mesh the decode workers subtract the background
+            background=None if sharded is None else bg)
 
         stop = threading.Event()
         DONE = object()
@@ -326,6 +363,17 @@ class OfflinePIV:
                     continue
             return None
 
+        def mesh_forward(batch_a, batch_b):
+            """Host batches through ``ShardedPIV``, a short batch padded by
+            repeating its last pair."""
+            n = len(batch_a)
+            if n < self._batch:
+                batch_a, batch_b = (torch.cat([t, t[-1:].expand(self._batch - n, -1, -1)])
+                                    for t in (batch_a, batch_b))
+                if cuda:
+                    batch_a, batch_b = batch_a.pin_memory(), batch_b.pin_memory()
+            return sharded.packed(batch_a, batch_b)[:n]
+
         def issue(batch_a, batch_b, ids, span, load_s):
             """The engine over one batch and the copy of its results; returns
             the drainer's item, or None when tearing down."""
@@ -335,10 +383,13 @@ class OfflinePIV:
                          torch.cuda.Event(enable_timing=True))
                 marks[0].record()
             t0 = time.perf_counter()
-            if bg is not None:  # saturating background subtract
-                batch_a = torch.where(batch_a > bg, batch_a - bg, 0)
-                batch_b = torch.where(batch_b > bg, batch_b - bg, 0)
-            packed = packed_forward(engine, batch_a, batch_b)
+            if sharded is not None:
+                packed = mesh_forward(batch_a, batch_b)
+            else:
+                if bg is not None:  # saturating background subtract
+                    batch_a = torch.where(batch_a > bg, batch_a - bg, 0)
+                    batch_b = torch.where(batch_b > bg, batch_b - bg, 0)
+                packed = packed_forward(engine, batch_a, batch_b)
             issue_s = time.perf_counter() - t0
             if not cuda:  # the result is host memory already
                 return ids, packed, None, None, (span, marks, load_s, issue_s)
