@@ -77,7 +77,25 @@ Phases, each failing loudly:
    the sharded engines' device ms and launches a batch (``torch.profiler``)
    beside the unsharded one and the window-split table of
    ``parallel.meshprof``; a one-rank NCCL group through
-   ``initialize_distributed`` in a child process.
+   ``initialize_distributed`` in a child process;
+10. the streaming front ends, the runner and the service at the same full
+   width (``phase_streaming``): ``OnlinePIV`` with the ``frame_shape`` hint
+   while a writer thread renames the 8 uniform pairs into an empty folder
+   at 8 pairs a second (each frame written under a name the watcher
+   ignores, then ``os.replace``d), then with all 8 renamed in at once
+   (two catch-up calls of 4): displacement, valid share, exact launch
+   counts, the parity budget against ``OfflinePIV``, the pairs that went
+   single and in catch-up and the latency from each ``_b`` rename to its
+   field; ``VideoPIV`` over the 16 frames (an FFV1 video where OpenCV is
+   installed, else ``video_stand_in`` over the decoded frames), bit-equal
+   to ``OfflinePIV`` at batch 4, also with a short last batch; ``PIVRunner``
+   with per-pair text saves and a checkpoint, its table's mean velocity
+   against the mean of ``OfflinePIV``'s fields; ``PIVService`` behind
+   ``make_server`` driven by ``PIVClient`` with ``TPIV_SERVE_SCAN_B=4``
+   (one pair, the burst bit-equal to ``OfflinePIV``, a file pair, health,
+   config and metrics, request and per-pair latencies), and a second
+   service with ``fused="on"`` (row 6's launches exact).  Every reading
+   carries the card's name and power limit.
 
 Phase 3 also runs ``tools/shift_anatomy_cuda.py``'s six modes of the
 window-shift kernel at pass 2 (``full``, ``noshuffle`` and ``rowbyrow``
@@ -110,6 +128,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2062,6 +2081,380 @@ def phase_mesh(uniform: str, shear: str, rough: str, cws_fields, bg_fields,
     return device_ms
 
 
+CAMERA_HZ = 8.0  # pairs a second: a double-pulse PIV camera
+POLL_S = 0.02  # the streaming runs' folder poll
+CATCHUP = 4  # OnlinePIV's catch-up chunk
+
+
+def zero_counts(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def read_counts(kernels) -> dict:
+    return {k.__name__: k.launches for k in kernels}
+
+
+def within_budget(got, want, label: str) -> None:
+    """Fields within the parity budget of the ones they are held against:
+    ``x, y`` equal, ``u, v`` within RMS 0.01 px, under 2% of the components
+    more than 0.01 px apart."""
+    check(len(got) == len(want), f"{label}: {len(got)} fields against {len(want)}")
+    for (gx, gy, gu, gv), (wx, wy, wu, wv) in zip(got, want):
+        check(np.array_equal(gx, wx) and np.array_equal(gy, wy), f"{label}: x, y differ")
+        d = np.abs(np.concatenate([(gu - wu).ravel(), (gv - wv).ravel()])) / UNIT
+        check(np.sqrt(np.mean(d ** 2)) < 0.01 and (d > 0.01).mean() < 0.02,
+              f"{label}: RMS {np.sqrt(np.mean(d ** 2))} px, "
+              f"{(d > 0.01).mean()} over 0.01 px")
+
+
+def bring_in(folder: str, i: int, which: str, data: bytes) -> None:
+    """Frame ``which`` of pair ``i``, written under a name the watcher
+    ignores and renamed into ``folder``: it never lands half-written."""
+    part = os.path.join(folder, f".p{i}_{which}.part")
+    with open(part, "wb") as f:
+        f.write(data)
+    os.replace(part, os.path.join(folder, f"p{i}_{which}.bmp"))
+
+
+def online_stream(folder: str):
+    from torchpiv_tpu_torch import OnlinePIV
+
+    os.makedirs(folder)
+    # idle_timeout only bounds a run whose pairs never all come out
+    return OnlinePIV(folder, wind_size=64, overlap=32, multipass=2,
+                     poll_interval=POLL_S, idle_timeout=60.0,
+                     catchup_batch=CATCHUP, frame_shape=FRAME)
+
+
+def drain_stream(piv, n: int):
+    """The stream's fields and the time each came out; stops it after
+    ``n`` fields."""
+    fields, out_t = [], []
+    for res in piv():
+        out_t.append(time.perf_counter())
+        fields.append(res)
+        if len(fields) == n:
+            piv.stop()
+    return fields, out_t
+
+
+def phase_online(uniform: str, tmp: str, kernels, cws_fields, smi: str) -> dict:
+    """``OnlinePIV`` at camera rate and in a burst over the uniform pairs
+    (see ``phase_streaming``); returns the readings."""
+    data = []
+    for i in range(N_PAIRS):
+        with open(os.path.join(uniform, f"p{i}_a.bmp"), "rb") as fa, \
+                open(os.path.join(uniform, f"p{i}_b.bmp"), "rb") as fb:
+            data.append((fa.read(), fb.read()))
+    out = {}
+
+    # camera rate: the camera starts once the stream has warmed on its own
+    folder = os.path.join(tmp, "camera")
+    piv = online_stream(folder)
+    renamed = {}
+
+    def camera():
+        deadline = time.monotonic() + 120
+        while piv.dispatches["warm"] < 2 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        t_next = time.perf_counter()
+        for i, (a, b) in enumerate(data):
+            time.sleep(max(0.0, t_next - time.perf_counter()))
+            bring_in(folder, i, "a", a)
+            bring_in(folder, i, "b", b)
+            renamed[i] = time.perf_counter()
+            t_next += 1.0 / CAMERA_HZ
+
+    zero_counts(kernels)
+    writer = threading.Thread(target=camera, name="camera", daemon=True)
+    writer.start()
+    fields, out_t = drain_stream(piv, N_PAIRS)
+    writer.join(timeout=60)
+    launches = read_counts(kernels)
+    check(not writer.is_alive() and len(renamed) == N_PAIRS, "the camera did not finish")
+    calls = sum(piv.dispatches.values())
+    log(f"OnlinePIV at {CAMERA_HZ} Hz: engine calls {dict(piv.dispatches)}, "
+        f"launches {launches}")
+    check_fields(fields, piv, N_PAIRS)
+    check(piv.dispatches["warm"] == 2, f"warm calls {dict(piv.dispatches)}")
+    check(launches == only(launches, shift_windows=2 * calls),
+          f"OnlinePIV at {CAMERA_HZ} Hz: launches {launches} for {calls} engine calls")
+    check_displacement(fields, f"OnlinePIV at {CAMERA_HZ} Hz")
+    valid = warm_up(piv, uniform)
+    check(valid > 0.95, f"OnlinePIV valid share {valid}")
+    within_budget(fields, cws_fields, f"OnlinePIV at {CAMERA_HZ} Hz against OfflinePIV")
+    lat = [1e3 * (out_t[i] - renamed[i]) for i in range(N_PAIRS)]
+    out["camera"] = {"single_pairs": piv.dispatches["single"],
+                     "catchup_pairs": CATCHUP * piv.dispatches["catchup"],
+                     "latency_ms_median": float(np.median(lat)),
+                     "latency_ms_max": float(max(lat)), "latency_ms": lat}
+    log(f"OnlinePIV at {CAMERA_HZ} Hz (poll {POLL_S} s, {smi}): "
+        f"{out['camera']['single_pairs']} pairs single, "
+        f"{out['camera']['catchup_pairs']} in catch-up; latency from the rename of "
+        f"a _b frame to its field: median {out['camera']['latency_ms_median']:.1f} ms, "
+        f"largest {out['camera']['latency_ms_max']:.1f} ms; valid share {valid:.4f}")
+
+    # a burst: every pair renamed in before the first poll
+    folder = os.path.join(tmp, "burst")
+    piv = online_stream(folder)
+    for i, (a, b) in enumerate(data):
+        bring_in(folder, i, "a", a)
+        bring_in(folder, i, "b", b)
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    fields, out_t = drain_stream(piv, N_PAIRS)
+    launches = read_counts(kernels)
+    log(f"OnlinePIV burst: engine calls {dict(piv.dispatches)}, launches {launches}")
+    check_fields(fields, piv, N_PAIRS)
+    check(dict(piv.dispatches) == {"warm": 2, "catchup": N_PAIRS // CATCHUP},
+          f"OnlinePIV burst: engine calls {dict(piv.dispatches)}")
+    check(launches == only(launches, shift_windows=2 * (2 + N_PAIRS // CATCHUP)),
+          f"OnlinePIV burst: launches {launches}")
+    check_displacement(fields, "OnlinePIV burst")
+    within_budget(fields, cws_fields, "OnlinePIV burst against OfflinePIV")
+    out["burst"] = {"catchup_calls": piv.dispatches["catchup"],
+                    "last_field_s": out_t[-1] - t0}
+    log(f"OnlinePIV burst of {N_PAIRS} pairs ({smi}): {piv.dispatches['catchup']} "
+        f"catch-up calls of {CATCHUP}, last field {out['burst']['last_field_s']:.3f} s "
+        f"after the stream started (its two warm calls included)")
+    return out
+
+
+def phase_video(uniform: str, tmp: str, kernels, cws_fields, smi: str) -> dict:
+    """``VideoPIV`` over the 16 frames of the uniform pairs, ``folder_mode=
+    "pairs"``, batch 4, bit-equal to ``OfflinePIV`` at batch 4; once more
+    with a short last batch (``max_pairs=7``).  Without OpenCV a stand-in
+    reads the decoded frames (``video_stand_in``)."""
+    from torchpiv_tpu_torch import OfflinePIV, VideoPIV
+    from torchpiv_tpu_torch.io import video as video_mod
+    from torchpiv_tpu_torch.io.dataset import PIVDataset
+
+    ds = PIVDataset(uniform, ".bmp")
+    frames = [f for i in range(N_PAIRS) for f in ds[i]]
+    path = os.path.join(tmp, "uniform.avi")
+    real = video_mod.cv2
+    if real is None:
+        reader = "a stand-in over the decoded frames (no OpenCV here)"
+        video_mod.cv2 = video_stand_in({path: frames})
+    else:  # lossless, so the frames stay the BMPs' to the bit
+        reader = f"OpenCV {real.__version__}, FFV1"
+        wr = real.VideoWriter(path, real.VideoWriter_fourcc(*"FFV1"), 10,
+                              FRAME[::-1], False)
+        check(wr.isOpened(), "OpenCV cannot write FFV1")
+        for f in frames:
+            wr.write(f)
+        wr.release()
+    out = {"reader": reader}
+    try:
+        for max_pairs in (None, N_PAIRS - 1):
+            n = max_pairs or N_PAIRS
+            label = f"VideoPIV max_pairs={max_pairs}"
+            piv = VideoPIV(path, wind_size=64, overlap=32, multipass=2,
+                           folder_mode="pairs", batch_size=BATCH, max_pairs=max_pairs)
+            zero_counts(kernels)
+            t0 = time.perf_counter()
+            fields = list(piv())
+            wall = time.perf_counter() - t0
+            launches = read_counts(kernels)
+            check(len(piv) == len(fields) == n, f"{label}: {len(fields)} fields")
+            check(launches == only(launches, shift_windows=2 * -(-n // BATCH)),
+                  f"{label}: launches {launches}")
+            want = cws_fields if max_pairs is None else list(OfflinePIV(
+                uniform, wind_size=64, overlap=32, multipass=2, batch_size=BATCH,
+                max_pairs=max_pairs)())
+            check(len(want) == n, f"{label}: OfflinePIV gave {len(want)} fields")
+            same_fields(fields, want, f"{label} against OfflinePIV at batch {BATCH}")
+            out[str(max_pairs)] = n / wall
+            log(f"{label} ({reader}; {smi}): {n} pairs at {n / wall:.3f} pairs/s, "
+                f"bit-equal to OfflinePIV at batch {BATCH}, launches {launches}")
+    finally:
+        video_mod.cv2 = real
+    return out
+
+
+def phase_runner(uniform: str, tmp: str, kernels, cws_fields, smi: str) -> dict:
+    """``PIVRunner`` over the uniform pairs, ``save_opt="Save all text"``,
+    a checkpoint every batch, batch 4: the per-pair files and the table,
+    its mean velocity against the mean of ``OfflinePIV``'s fields, progress,
+    and the checkpoint removed at the end."""
+    import glob
+
+    from torchpiv_tpu_torch.pipeline import PIVRunner
+    from torchpiv_tpu_torch.utils.config import PIVParams
+
+    save_dir = os.path.join(tmp, "runner_out")
+    ckpt = os.path.join(tmp, "runner.ckpt.npz")
+    params = PIVParams(folder=uniform, wind_size=64, overlap=32, multipass=2,
+                       save_opt="Save all text", save_dir=save_dir)
+    progress, ckpt_seen = [], []
+    runner = PIVRunner(params, on_progress=progress.append,
+                       on_output=lambda out: ckpt_seen.append(os.path.exists(ckpt)),
+                       checkpoint_path=ckpt, checkpoint_every=BATCH, batch_size=BATCH)
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    table = runner.run()
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    check(table is not None and progress[-1] == 100, f"PIVRunner progress {progress}")
+    check(launches == only(launches, shift_windows=2 * N_PAIRS // BATCH),
+          f"PIVRunner launches {launches}")
+    # written after the first batch's last pair, removed at the end
+    check(ckpt_seen == [False] * BATCH + [True] * (N_PAIRS - BATCH)
+          and not os.path.exists(ckpt), f"PIVRunner checkpoint {ckpt_seen}")
+    files = sorted(glob.glob(os.path.join(save_dir, "uniform_pair*.txt")))
+    stats = glob.glob(os.path.join(save_dir, "uniform_statistics.txt"))
+    check(len(files) == N_PAIRS and len(stats) == 1,
+          f"PIVRunner wrote {len(files)} pair files and {len(stats)} tables")
+    first = np.loadtxt(os.path.join(save_dir, "uniform_pair.txt"), delimiter=",",
+                       skiprows=1)
+    check(np.abs(first[:, 2] - cws_fields[0][2].ravel()).max() < 6e-7,
+          "PIVRunner: the first pair's file is not OfflinePIV's field")
+    worst = 0.0
+    for col, k in (("Vx[m/s]", 2), ("Vy[m/s]", 3)):
+        mean = np.mean([f[k] for f in cws_fields], axis=0)
+        err = float(np.abs(table[col] - mean).max() / np.abs(mean).max())
+        worst = max(worst, err)
+        check(err < 1e-12, f"PIVRunner {col}: relative difference {err}")
+    log(f"PIVRunner ({smi}): {N_PAIRS} pairs in {wall:.3f} s with per-pair text "
+        f"saves, {len(files)} files and the table; table mean against OfflinePIV's "
+        f"fields: largest relative difference {worst:.3e}; launches {launches}")
+    return {"pairs_per_s": N_PAIRS / wall}
+
+
+def metric(text: str, name: str) -> float:
+    (line,) = [l for l in text.splitlines() if l.startswith(name + " ")]
+    return float(line.split()[1])
+
+
+def phase_service(uniform: str, kernels, cws_fields, smi: str) -> dict:
+    """``PIVService`` behind ``make_server`` on 127.0.0.1, warmed up first
+    and driven by ``PIVClient``, with ``TPIV_SERVE_SCAN_B=4``: one pair (within the parity
+    budget of ``OfflinePIV``'s field), the 8 pairs as a burst (bit-equal to
+    ``OfflinePIV`` at batch 4), a file pair, health, config and metrics;
+    then a second service with ``fused="on"`` answers the burst."""
+    from torchpiv_tpu_torch.client import PIVClient
+    from torchpiv_tpu_torch.io.dataset import PIVDataset
+    from torchpiv_tpu_torch.serve import PIVService, make_server
+
+    ds = PIVDataset(uniform, ".bmp")
+    stack_a = np.stack([ds[i][0] for i in range(N_PAIRS)])
+    stack_b = np.stack([ds[i][1] for i in range(N_PAIRS)])
+    out = {}
+    for label, options in (("PIVService", {}), ("PIVService fused=on", {"fused": "on"})):
+        os.environ["TPIV_SERVE_SCAN_B"] = str(BATCH)
+        service = PIVService(wind_size=64, overlap=32, multipass=2,
+                             engine_options=options)
+        del os.environ["TPIV_SERVE_SCAN_B"]
+        # as a server starts: the engine built and both paths run once
+        t0 = time.perf_counter()
+        service.warmup(FRAME)
+        warm_ms = 1e3 * (time.perf_counter() - t0)
+        srv = make_server(service, "127.0.0.1", 0)
+        serving = threading.Thread(target=srv.serve_forever, name="serve", daemon=True)
+        serving.start()
+        try:
+            client = PIVClient("http://%s:%d" % srv.server_address)
+            zero_counts(kernels)
+            calls, req_ms = 0, {"warmup": warm_ms}
+            if not options:
+                t0 = time.perf_counter()
+                single = client.analyze(stack_a[0], stack_b[0])
+                req_ms["pair"] = 1e3 * (time.perf_counter() - t0)
+                within_budget([single[:4]], cws_fields[:1], f"{label} one pair")
+                calls += 1
+            t0 = time.perf_counter()
+            burst = client.analyze_burst(stack_a, stack_b)
+            req_ms["burst"] = 1e3 * (time.perf_counter() - t0)
+            calls += N_PAIRS // BATCH
+            check(not burst["skipped_pairs"].any(), f"{label}: a pair was skipped")
+            fields = [(burst["x"], burst["y"], burst["u"][i], burst["v"][i])
+                      for i in range(N_PAIRS)]
+            check_displacement(fields, f"{label} burst")
+            if not options:
+                same_fields(fields, cws_fields, f"{label} burst against OfflinePIV")
+                t0 = time.perf_counter()
+                files = client.analyze_files(os.path.join(uniform, "p0_a.bmp"),
+                                             os.path.join(uniform, "p0_b.bmp"))
+                req_ms["files"] = 1e3 * (time.perf_counter() - t0)
+                calls += 1
+                check(all(np.array_equal(f, s) for f, s in zip(files, single)),
+                      f"{label}: the file pair differs from the same pair posted")
+            launches = read_counts(kernels)
+            kernel = "fused_piv_pass" if options else "shift_windows"
+            check(launches == only(launches, **{kernel: 2 * calls}),
+                  f"{label}: launches {launches} for {calls} engine calls")
+            health, config, text = client.health(), client.config(), client.metrics()
+            check(health["ok"] and health["compiled_shapes"] == [list(FRAME)]
+                  and health["device"].startswith("cuda"), f"{label}: health {health}")
+            check(config["wind_size"] == 64 and config.get("fused", "auto")
+                  == options.get("fused", "auto"), f"{label}: config {config}")
+            served = metric(text, "tpiv_pairs_served")
+            # the warm-up's pair counts, as in the JAX package
+            check(served == 1 + N_PAIRS + (0 if options else 2),
+                  f"{label}: {served} pairs served")
+            out[label] = {"requests_ms": req_ms,
+                          "pair_latency_ms_median": metric(text, "tpiv_latency_ms_median"),
+                          "pair_latency_ms_p95": metric(text, "tpiv_latency_ms_p95")}
+            log(f"{label} ({smi}): requests {json.dumps(req_ms)} ms; /metrics per-pair "
+                f"latency median {out[label]['pair_latency_ms_median']} ms, p95 "
+                f"{out[label]['pair_latency_ms_p95']} ms over {int(served)} pairs; "
+                f"launches {launches}")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            serving.join(timeout=30)
+    return out
+
+
+def phase_streaming(uniform: str, tmp: str, kernels, cws_fields, smi: str) -> dict:
+    """Phase 10: the streaming front ends, the runner and the service at
+    the main path's full width (4 MP, w64/o32, 2-pass CWS, the host
+    infill tail)."""
+    out = {"online": phase_online(uniform, tmp, kernels, cws_fields, smi)}
+    out["video"] = phase_video(uniform, tmp, kernels, cws_fields, smi)
+    out["runner"] = phase_runner(uniform, tmp, kernels, cws_fields, smi)
+    out["service"] = phase_service(uniform, kernels, cws_fields, smi)
+    log(json.dumps({"streaming": out, "card": smi}))
+    return out
+
+
+def video_stand_in(videos: dict):
+    """A stand-in for OpenCV's ``cv2`` module where the card's machine has
+    none: ``VideoCapture(path)`` over the decoded ``[H, W]`` uint8 frames
+    ``videos[path]``, with ``isOpened``, ``get``, ``read`` and ``release``
+    and the three ``CAP_PROP_*`` constants ``io.video`` reads."""
+    import types
+
+    class VideoCapture:
+        def __init__(self, path):
+            self._frames = videos.get(path)
+            self._next = 0
+
+        def isOpened(self):  # noqa: N802 (the OpenCV name)
+            return self._frames is not None
+
+        def get(self, prop):
+            if prop == stand_in.CAP_PROP_FRAME_COUNT:
+                return float(len(self._frames))
+            h, w = self._frames[0].shape
+            return float(h if prop == stand_in.CAP_PROP_FRAME_HEIGHT else w)
+
+        def read(self):
+            if self._next >= len(self._frames):
+                return False, None
+            self._next += 1
+            return True, self._frames[self._next - 1].copy()
+
+        def release(self):
+            self._frames = None
+
+    stand_in = types.SimpleNamespace(
+        VideoCapture=VideoCapture, CAP_PROP_FRAME_COUNT=7,
+        CAP_PROP_FRAME_HEIGHT=4, CAP_PROP_FRAME_WIDTH=3)
+    return stand_in
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2164,6 +2557,8 @@ def main() -> int:
         del frames_a
         phase_mesh(uniform, shear, rough, cws_fields, bg_fields, KERNELS)
         log(f"mesh phase done at {time.perf_counter() - t_start:.1f} s")
+        phase_streaming(uniform, tmp, KERNELS, cws_fields, smi)
+        log(f"streaming phase done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the path that runs it
     on_path = {"shift_windows": cws_launches, "shift_windows_bicubic": bicubic_launches,
                "def_windows": def_launches, "peakfit": def_launches,

@@ -3,18 +3,22 @@ engine: validation, pass schedules, field shapes, coordinates, window
 origins and spline upsample matrices (exact), the JAX-config conversion,
 the pass-fusion knob with the combinations both engines refuse, the
 robust-correlation and validation knobs, the live ``shift_variant``, the
-static region-of-interest state, a ValueError for what is not ported
-(``dtype``, and bicubic CWS with a shift variant), and the size rules of
-the resampling kernels (the JAX engine falls through to its XLA paths
-there, which the port does not have)."""
+static region-of-interest state, the ``dtype`` knob (every float type
+constructs and carries across; a non-float type, and the FFT correlator on
+low-precision pass-1 windows, raise a ValueError naming the knob), a
+ValueError for what is not ported (bicubic CWS with a shift variant), and
+the size rules of the resampling kernels (the JAX engine falls through to
+its XLA paths there, which the port does not have)."""
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from torchpiv_tpu.models import MultipassPIV as JaxMultipassPIV
 from torchpiv_tpu.models import PIVConfig as JaxPIVConfig
 from torchpiv_tpu_torch import MultipassPIV, PIVConfig
+from torchpiv_tpu_torch.config import compute_dtype
 from torchpiv_tpu_torch.state import from_jax_config, from_jax_engine_state
 
 FRAME = (192, 256)
@@ -107,20 +111,65 @@ def test_fields_and_defaults_match_jax_twin():
     assert jf == tf
 
 
+# values the JAX config takes and the port refuses: element types that are
+# no float type (the JAX engine would wrap 8-bit grey levels into int8)
 NOT_PORTED = [
-    dict(dtype="bfloat16"),
-    dict(dtype="float16"),
+    dict(dtype="int8"),
+    dict(dtype="float8_e4m3fn"),
 ]
 
 
 @pytest.mark.parametrize("kw", NOT_PORTED)
 def test_unported_knobs_raise_naming_the_knob(kw):
-    JaxPIVConfig(frame_shape=FRAME, **kw)  # valid for the JAX engine
+    JaxPIVConfig(frame_shape=FRAME, **kw)  # valid for the JAX config
     (knob,) = kw
     with pytest.raises(ValueError, match=knob):
         PIVConfig(frame_shape=FRAME, **kw)
     with pytest.raises(ValueError, match=knob):
         from_jax_config(dataclasses.asdict(JaxPIVConfig(frame_shape=FRAME, **kw)))
+
+
+# dtype -> the element type the port computes in (float64 as the JAX
+# package computes it with 64-bit mode off, as these tests run it)
+DTYPES = {"float32": torch.float32, "float64": torch.float32,
+          "bfloat16": torch.bfloat16, "float16": torch.float16,
+          "half": torch.float16}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_every_float_dtype_constructs_and_carries_across(dtype):
+    kw = dict(frame_shape=FRAME, wind_size=32, overlap=16, multipass=2, dtype=dtype)
+    jcfg, tcfg = JaxPIVConfig(**kw), PIVConfig(**kw)
+    assert from_jax_config(dataclasses.asdict(jcfg)) == tcfg
+    assert compute_dtype(dtype) == str(DTYPES[dtype]).removeprefix("torch.")
+    jeng = JaxMultipassPIV(jcfg)
+    teng = MultipassPIV(tcfg, device="cpu")
+    assert teng.compute_dtype == DTYPES[dtype]
+    # the JAX package's effective type: float64 is float32 with x64 off
+    assert {str(a.dtype) for a in jeng.upsamplers[0]} == {compute_dtype(dtype)}
+    for t, j in zip(teng.upsamplers[0], jeng.upsamplers[0]):
+        assert t.dtype == DTYPES[dtype]
+        np.testing.assert_array_equal(t.float().numpy(), np.asarray(j, np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_fft_correlator_refuses_low_precision_windows_like_jax(dtype):
+    """The JAX package's FFT takes float32 and float64 only: its engine
+    raises on pass 1's windows when it runs, the port when it is
+    configured; where pass 1 runs fused or weighted both take the type."""
+    from torchpiv_tpu_torch.utils.synthetic import particle_pair
+
+    kw = dict(frame_shape=(64, 64), wind_size=32, overlap=16, dtype=dtype,
+              correlator="fft")
+    a, b = particle_pair((64, 64), (1.0, 0.5), seed=3)
+    with pytest.raises(ValueError, match="float32"):
+        JaxMultipassPIV(JaxPIVConfig(**kw))(a, b)
+    with pytest.raises(ValueError, match="correlator='fft'"):
+        PIVConfig(**kw)
+    for ok in (dict(correlator="auto"), dict(correlator="matmul"),
+               dict(fused="split"), dict(fused="on"),
+               dict(window_weight="gaussian")):
+        assert PIVConfig(**{**kw, **ok})
 
 
 # refine-pass windows beyond the resampling kernels' limits: the JAX engine
@@ -177,9 +226,14 @@ def test_peakfit_kernel_combinations_raise_like_jax(kw):
 
 
 def test_only_dtype_is_left_unported():
+    """The table is empty: ``dtype`` is ported, and refuses only the
+    non-float types (``compute_dtype``)."""
     from torchpiv_tpu_torch.config import NOT_PORTED as table
 
-    assert set(table) == {"dtype"}
+    assert table == {}
+    for dtype in ("int32", "complex64", "no_such_type", None):
+        with pytest.raises(ValueError, match="dtype"):
+            compute_dtype(dtype)
 
 
 @pytest.mark.parametrize("variant", ["bf16", "lanephases", "mxu", "phases"])

@@ -3,7 +3,10 @@ shift, the four bilinear shift variants, window deformation, fused peak fit,
 correlate-and-fit, whole pass) against its plain PyTorch version, the CUDA
 engine against the CPU engine (shift variants and robust knobs too), the
 kernels' launches on the OfflinePIV paths, the pipeline's stages and
-background on the card, and the exact modes of the two anatomy tools.  Every test skips without a CUDA
+background on the card, the exact modes of the two anatomy tools, the
+``dtype`` knob on the kernel paths, and OnlinePIV, VideoPIV, the HTTP
+service and PIVRunner on the card against the same entry points on the
+CPU.  Every test skips without a CUDA
 device.  The file imports neither JAX nor the JAX package, so it also runs
 where JAX is not installed:
 
@@ -1147,3 +1150,138 @@ def test_mesh_background_on_one_card(card, tmp_path):
     for a, b in zip(want, got):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
+
+
+# ---- the dtype knob on the kernel paths -------------------------------------
+
+@pytest.mark.parametrize("kw", [
+    dict(multipass_mode="CWS"), dict(multipass_mode="DWS"),
+    dict(multipass_mode="DEF"), dict(multipass_mode="DEF", peakfit="pallas"),
+    dict(multipass_mode="CWS", cws_interp="bicubic"),
+    dict(multipass_mode="CWS", fused="split"), dict(multipass_mode="CWS", fused="on"),
+    dict(multipass_mode="CWS", shift_variant="phases"),
+], ids=lambda kw: "-".join(kw.values()))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float64"])
+def test_cuda_engine_dtype_matches_cpu_engine(card, dtype, kw):
+    """The rounding of ``dtype`` on the card and on the CPU, on float-valued
+    frames that the low-precision types round."""
+    flow = shear_flow(1.0, 0.01) if kw["multipass_mode"] == "DEF" else (3.3, -2.1)
+    fa, fb = particle_pair((512, 512), flow, seed=9)
+    fa, fb = (torch.from_numpy((f * 0.731).astype(np.float32)) for f in (fa, fb))
+    cfg = PIVConfig(frame_shape=(512, 512), wind_size=64, overlap=32,
+                    multipass=2, dtype=dtype, **kw)
+    cu, cv, ci = (t.cpu().numpy() for t in MultipassPIV(cfg, device=card)(fa, fb))
+    pu, pv, pi = (t.numpy() for t in MultipassPIV(cfg, device="cpu")(fa, fb))
+    assert np.mean(ci != pi) < 0.02
+    both = ~(ci | pi)
+    assert np.sqrt(np.mean((cu - pu)[both] ** 2)) < 0.01
+    assert np.sqrt(np.mean((cv - pv)[both] ** 2)) < 0.01
+
+
+# ---- the streaming front ends, the runner and the service -------------------
+
+STREAM_KW = dict(wind_size=32, overlap=16, multipass=2)
+
+
+def _within_budget(got, want):
+    assert len(got) == len(want)
+    for (gx, gy, gu, gv), (wx, wy, wu, wv) in zip(got, want):
+        assert np.array_equal(gx, wx) and np.array_equal(gy, wy)
+        d = np.abs(np.concatenate([(gu - wu).ravel(), (gv - wv).ravel()])) / 1000.0
+        assert np.sqrt(np.mean(d ** 2)) < 0.01 and (d > 0.01).mean() < 0.02
+
+
+def _online(folder, device, n):
+    from torchpiv_tpu_torch import OnlinePIV
+
+    folder.mkdir()
+    piv = OnlinePIV(str(folder), device=device, poll_interval=0.02, idle_timeout=30.0,
+                    catchup_batch=2, frame_shape=(256, 256), **STREAM_KW)
+    _write_pairs(folder, n)  # before the first poll: catch-up chunks
+    fields = []
+    for res in piv():
+        fields.append(res)
+        if len(fields) == n:
+            piv.stop()
+    return piv, fields
+
+
+def test_online_piv_on_the_card(card, tmp_path):
+    before = shift_windows.launches
+    piv, fields = _online(tmp_path / "card", "auto", 5)
+    assert piv.engine.device.type == "cuda"
+    assert dict(piv.dispatches) == {"warm": 2, "catchup": 2, "single": 1}
+    assert shift_windows.launches == before + 2 * 5  # two a call
+    _, want = _online(tmp_path / "cpu", "cpu", 5)
+    _within_budget(fields, want)
+
+
+def test_video_piv_on_the_card(card, tmp_path, monkeypatch):
+    """Through the video stand-in of ``chip_smoke.py`` (the card's machine
+    may have no OpenCV), a short last batch: the CPU's fields."""
+    from torchpiv_tpu_torch import VideoPIV
+    from torchpiv_tpu_torch.io import video as video_mod
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    frames = [f for i in range(3) for f in particle_pair((256, 256), (3.3, -2.1),
+                                                         seed=70 + i)]
+    monkeypatch.setattr(video_mod, "cv2", smoke.video_stand_in({"v.avi": frames}))
+    runs = {}
+    for device in ("auto", "cpu"):
+        piv = VideoPIV("v.avi", device=device, folder_mode="pairs", batch_size=2,
+                       **STREAM_KW)
+        before = shift_windows.launches
+        runs[device] = list(piv())
+        assert len(runs[device]) == 3
+    assert shift_windows.launches == before  # the CPU run launched nothing
+    _within_budget(runs["auto"], runs["cpu"])
+
+
+def test_service_on_the_card(card, monkeypatch):
+    """The HTTP handler threads run the engine on the card; a burst of
+    three in two calls (``TPIV_SERVE_SCAN_B=2``), one pair, the CPU's fields."""
+    from torchpiv_tpu_torch.client import PIVClient
+    from torchpiv_tpu_torch.serve import PIVService, make_server
+
+    monkeypatch.setenv("TPIV_SERVE_SCAN_B", "2")
+    pairs = [particle_pair((256, 256), (3.3, -2.1), seed=80 + i) for i in range(3)]
+    a, b = np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+    service = PIVService(**STREAM_KW)
+    srv = make_server(service, "127.0.0.1", 0)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        client = PIVClient("http://%s:%d" % srv.server_address)
+        before = shift_windows.launches
+        burst = client.analyze_burst(a, b)
+        single = client.analyze(a[0], b[0])
+        assert shift_windows.launches == before + 2 * 3
+        assert client.health()["device"].startswith("cuda")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=30)
+    want = PIVService(device="cpu", **STREAM_KW).analyze_batch(a, b)
+    assert not burst["skipped_pairs"].any()
+    _within_budget([(burst["x"], burst["y"], burst["u"][i], burst["v"][i]) for i in range(3)],
+                   [(want["x"], want["y"], want["u"][i], want["v"][i]) for i in range(3)])
+    # one pair a call and three: the same field within the budget
+    _within_budget([single[:4]], [(burst["x"], burst["y"], burst["u"][0], burst["v"][0])])
+
+
+def test_runner_on_the_card(card, tmp_path):
+    from torchpiv_tpu_torch.pipeline import PIVRunner
+    from torchpiv_tpu_torch.utils.config import PIVParams
+
+    _write_pairs(tmp_path, 4)
+    tables = {}
+    for device in ("auto", "cpu"):
+        params = PIVParams(folder=str(tmp_path), device=device, **STREAM_KW)
+        tables[device] = PIVRunner(params, batch_size=2).run()
+    for key in ("Vx[m/s]", "Vy[m/s]"):
+        d = np.abs(tables["auto"][key] - tables["cpu"][key]) / 1000.0
+        assert np.sqrt(np.mean(d ** 2)) < 0.01
+    np.testing.assert_array_equal(tables["auto"]["x[mm]"], tables["cpu"]["x[mm]"])

@@ -10,4 +10,19 @@ from .config import PIVConfig
 from .models.multipass import MultipassPIV
 from .pipeline import OfflinePIV
 
-__all__ = ["PIVConfig", "MultipassPIV", "OfflinePIV"]
+__all__ = ["PIVConfig", "MultipassPIV", "OfflinePIV", "OnlinePIV", "VideoPIV",
+           "PIVClient"]
+
+
+def __getattr__(name):
+    # the streaming front ends and the client load on first use, as in the
+    # JAX package
+    if name in ("OnlinePIV", "VideoPIV"):
+        from . import pipeline
+
+        return getattr(pipeline, name)
+    if name == "PIVClient":
+        from .client import PIVClient
+
+        return PIVClient
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

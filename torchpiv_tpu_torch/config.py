@@ -26,9 +26,35 @@ The robust-correlation and validation knobs (``window_weight``,
 ``median_filter``, ``u_limits``/``v_limits``, ``global_std``,
 ``second_peak_fallback``) are live, with the JAX twin's cross-checks.
 
+``dtype`` casts where the JAX engine casts (``compute_dtype`` names the
+element type; the kernels themselves compute and store float32, as the TPU
+kernels do after their cast on entry):
+
+* the spline upsample operators and both predictor matmuls of a refine
+  pass are in that type (so are the predictor and its half-shift);
+* pass 1's windows are rounded to it after extraction, and promoted to
+  float32 where they are correlated, as the JAX package's matmul DFT (its
+  TPU correlator) promotes them; with window weights pass 1 normalises them
+  in that type first;
+* the frames that the shift and deformation kernels of a refine pass get
+  are rounded to it, and so are the shifts and gradients every resampling
+  kernel gets; the whole-pass kernel (``fused="on"``) gets the frame as it
+  is, as in the JAX engine.
+
+``"float32"`` and ``"float64"`` compute in float32: with 64-bit mode off,
+its default, the JAX package computes ``"float64"`` as float32, and the
+port follows that type.  ``"bfloat16"`` and ``"float16"`` round the values
+above.  Any other name (an integer type, an 8-bit float) raises
+``ValueError`` naming ``dtype``.
+
 What raises ``ValueError`` here and not in the JAX twin:
 
-* ``dtype`` other than ``"float32"`` (``NOT_PORTED``);
+* ``dtype`` other than the four above;
+* ``dtype`` ``"bfloat16"`` or ``"float16"`` with ``correlator="fft"``
+  where pass 1 correlates its windows through the FFT (unfused and
+  unweighted): the JAX package's FFT takes float32 and float64 only and
+  raises there when the engine runs, the port when it is configured;
+  ``"auto"`` and ``"matmul"`` take the matmul DFT's promotion above;
 * refine-pass windows beyond the resampling kernels' limits;
 * CWS with ``cws_interp="bicubic"``, a ``shift_variant`` other than
   ``"rolls"`` and a refine pass: the JAX engine sends that combination to
@@ -38,6 +64,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional, Tuple
+
+import numpy as np
 
 MAX_SHIFT_WIND = 128  # refine-pass window limit of the bilinear shift kernel
 MAX_BICUBIC_WIND = 125  # ... of the bicubic shift kernel
@@ -50,9 +78,27 @@ def def_tile(wind_size: int, margin: int, interp: str) -> int:
 
 
 # knob -> predicate on its value that is true when the value is not ported
-NOT_PORTED = {
-    "dtype": lambda v: v != "float32",
-}
+# (every knob is ported; ``dtype`` refuses non-float types on its own)
+NOT_PORTED = {}
+
+
+def compute_dtype(name) -> str:
+    """The element type the engine computes ``dtype=name`` in:
+    ``"float32"`` (also for ``"float64"``, as the JAX package computes it
+    with 64-bit mode off), ``"bfloat16"`` or ``"float16"``; a numpy alias
+    (``"half"``, ``"f4"``) names its type.  Raises ``ValueError`` naming
+    ``dtype`` for anything else."""
+    if name == "bfloat16":
+        return name
+    try:
+        kind = np.dtype(name).name if isinstance(name, str) else None
+    except TypeError:
+        kind = None
+    if kind not in ("float16", "float32", "float64"):
+        raise ValueError(
+            f"dtype={name!r}: the port computes in float32 (also for "
+            f"'float64'), 'bfloat16' or 'float16' only")
+    return "float32" if kind == "float64" else kind
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +142,18 @@ class PIVConfig:
     second_peak_fallback: bool = False  # vector recovery at invalid sites
     fallback_threshold: float = 2.0
     extract_variant: str = "stack"  # TPU lowering only: no effect
+
+    def _pass1_fused(self) -> bool:
+        """Pass 1 runs in a pass-fusion kernel in the JAX engine (which
+        casts its windows to float32) rather than through the correlator."""
+        if self.subpixel != "gauss3":
+            return False
+        if self.fused == "on":
+            return (self.edge_exact and self.window_weight is None
+                    and self.cws_interp == "bilinear")
+        return (self.fused == "split" and self.window_weight is None
+                and all(4 <= w <= 128 and w & (w - 1) == 0
+                        for w, _ in self.pass_schedule()))
 
     def pass_schedule(self) -> List[Tuple[int, int]]:
         """Per-pass (wind_size, overlap), shrunk by int floor-division per
@@ -194,6 +252,14 @@ class PIVConfig:
                     f"pass {p + 1} degenerates to window {w}, overlap {o} — "
                     f"reduce multipass/multipass_scale"
                 )
+        low = compute_dtype(self.dtype) != "float32"
+        if low and self.correlator == "fft" and self.window_weight is None \
+                and not self._pass1_fused():
+            raise ValueError(
+                f"dtype={self.dtype!r} with correlator='fft': pass 1 hands "
+                f"its {self.dtype} windows to the FFT, which takes float32 "
+                f"and float64 only in the JAX package; use correlator="
+                f"'auto' or 'matmul' (the windows promoted to float32)")
         # what the port does not implement yet
         for knob, unported in NOT_PORTED.items():
             value = getattr(self, knob)

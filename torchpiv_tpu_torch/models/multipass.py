@@ -65,8 +65,14 @@ Pass fusion (``fused``), with the JAX engine's rules:
 
 The static operators (spline upsample matrices ``Ay``/``Ax`` between pass
 grids, per-pass window origins) are registered buffers.  The predictor
-matmuls run in full float32: on a CUDA device the engine raises if TF32 is
-enabled, because a TF32 predictor flips CWS integer-crossing decisions.
+matmuls run in full float32 at the default ``dtype``: on a CUDA device the
+engine raises if TF32 is enabled, because a TF32 predictor flips CWS
+integer-crossing decisions.
+
+``dtype`` (``config.compute_dtype``) rounds where the JAX engine casts:
+the upsample operators and the predictor, pass 1's windows (promoted to
+float32 at the correlation) and what the resampling kernels are handed;
+the kernels compute in float32 (``config.py`` states the rule).
 """
 from __future__ import annotations
 
@@ -76,7 +82,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import PIVConfig
+from ..config import PIVConfig, compute_dtype
 from ..kernels.corrfit import correlate_peakfit
 from ..kernels.deform import def_windows
 from ..kernels.fused_pass import fused_piv_pass
@@ -115,6 +121,7 @@ class MultipassPIV(nn.Module):
         super().__init__()
         self.config = config
         self.schedule = config.pass_schedule()
+        self.compute_dtype = getattr(torch, compute_dtype(config.dtype))
         H, W = config.frame_shape
         self.coords = [get_coordinates((H, W), w, o) for w, o in self.schedule]
         self.field_shapes = [get_field_shape((H, W), w, o) for w, o in self.schedule]
@@ -154,8 +161,8 @@ class MultipassPIV(nn.Module):
             x0, y0 = self.coords[p - 1]
             x1, y1 = self.coords[p]
             Ay, Ax = upsample_matrices(y0[:, 0], x0[0, :], y1[:, 0], x1[0, :])
-            self.register_buffer(f"Ay_{p}", torch.from_numpy(Ay.astype(np.float32)))
-            self.register_buffer(f"Ax_{p}", torch.from_numpy(Ax.astype(np.float32)))
+            self.register_buffer(f"Ay_{p}", torch.from_numpy(Ay).to(self.compute_dtype))
+            self.register_buffer(f"Ax_{p}", torch.from_numpy(Ax).to(self.compute_dtype))
         self.to(resolve_device(device))
 
     @property
@@ -191,6 +198,12 @@ class MultipassPIV(nn.Module):
     @property
     def final_field_shape(self) -> Tuple[int, int]:
         return self.field_shapes[-1]
+
+    def _in_dtype(self, frame):
+        """A float32 frame rounded to ``dtype``, as the resampling kernels
+        of a refine pass are handed it (float32 again: they compute in
+        float32)."""
+        return frame.to(self.compute_dtype).float()
 
     def _masked_frame(self, frame):
         """Zero the excluded pixels (no-op without a mask)."""
@@ -298,10 +311,10 @@ class MultipassPIV(nn.Module):
             u, v, inval = self._fused_pass(0, frame_a, frame_b, z, z, z, z,
                                            dc_normalize=True)
         else:
-            aa = extract_windows(frame_a, w, o)
-            bb = extract_windows(frame_b, w, o)
+            aa = extract_windows(frame_a, w, o).to(self.compute_dtype)
+            bb = extract_windows(frame_b, w, o).to(self.compute_dtype)
             if rows is None and self._use_split():
-                u, v, inval = self._corrfit(aa, bb, dc_normalize=True)
+                u, v, inval = self._corrfit(aa.float(), bb.float(), dc_normalize=True)
             else:
                 wgt = self.weight_0
                 if wgt is None:
@@ -341,7 +354,7 @@ class MultipassPIV(nn.Module):
             Ay_rows = Ay[org:org + R]
 
         def up(field, A=Ay_rows):  # spline predictor, [B, R0, C0] -> [B, R, C1]
-            return torch.matmul(torch.matmul(A, field.to(torch.float32)), Ax.T)
+            return torch.matmul(torch.matmul(A, field.to(self.compute_dtype)), Ax.T)
 
         u0 = up(u)
         v0 = up(v)
@@ -365,7 +378,8 @@ class MultipassPIV(nn.Module):
                 v0 = torch.where(val0, 0.0, v0)
             u2 = torch.round(u0 / 2.0)  # integer shifts: a pure tile copy
             v2 = torch.round(v0 / 2.0)
-        sx, sy = u2.reshape(B, -1), v2.reshape(B, -1)
+        # the kernels take float32 shifts (the values in ``dtype``)
+        sx, sy = u2.reshape(B, -1).float(), v2.reshape(B, -1).float()
         fused_result = None
         if cfg.multipass_mode != "DEF" and rows is None and self._use_fused():
             # DWS shifts are integer-valued: the kernel's blend degenerates
@@ -381,22 +395,22 @@ class MultipassPIV(nn.Module):
                 # differentiate the full predictor, then take the block
                 u2f, v2f = up(u, Ay) / 2.0, up(v, Ay) / 2.0
                 u2, v2 = u2f[:, org:org + R], v2f[:, org:org + R]
-                sx, sy = u2.reshape(B, -1), v2.reshape(B, -1)
+                sx, sy = u2.reshape(B, -1).float(), v2.reshape(B, -1).float()
             grads = [_gradient(u2f, step, -1), _gradient(u2f, step, -2),
                      _gradient(v2f, step, -1), _gradient(v2f, step, -2)]
             if rows is not None:
                 grads = [g[:, org:org + R] for g in grads]
-            maps = [sx, sy] + [g.reshape(B, -1) for g in grads]
+            maps = [sx, sy] + [g.reshape(B, -1).float() for g in grads]
             kw.update(margin=cfg.def_margin, interp=cfg.cws_interp)
-            aa = def_windows(frame_a, *(-m for m in maps), **kw)
-            bb = def_windows(frame_b, *maps, **kw)
+            aa = def_windows(self._in_dtype(frame_a), *(-m for m in maps), **kw)
+            bb = def_windows(self._in_dtype(frame_b), *maps, **kw)
         else:
             if cfg.multipass_mode == "CWS":  # DWS stays the integer copy
                 kw.update(interp=cfg.cws_interp)
             if kw.get("interp", "bilinear") == "bilinear":
                 kw.update(variant=self._shift_variant())
-            aa = shift_windows(frame_a, -sx, -sy, **kw)
-            bb = shift_windows(frame_b, sx, sy, **kw)
+            aa = shift_windows(self._in_dtype(frame_a), -sx, -sy, **kw)
+            bb = shift_windows(self._in_dtype(frame_b), sx, sy, **kw)
 
         cand = None
         if fused_result is not None:

@@ -31,7 +31,11 @@ def correlate_fft(
     the cross-spectrum is normalised to unit magnitude per frequency bin and
     weighted by the filter; it takes precedence over ``dc_normalize``, which
     a phase-only spectrum makes meaningless.
+
+    Windows of a lower precision (``dtype="bfloat16"`` or ``"float16"``)
+    are promoted to float32 first, as the JAX package's matmul DFT does.
     """
+    images_a, images_b = images_a.float(), images_b.float()
     fa = torch.fft.rfft2(images_a)
     fb = torch.fft.rfft2(images_b)
     prod = torch.conj(fa) * fb

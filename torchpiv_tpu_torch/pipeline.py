@@ -1,5 +1,6 @@
-"""Pipeline layer: ``OfflinePIV`` and the per-pair host tail (counterpart of
-``torchpiv_tpu/pipeline.py``).
+"""Pipeline layer: ``OfflinePIV``, the streaming front ends ``OnlinePIV``
+and ``VideoPIV``, the headless ``PIVRunner``, ``DeviceMap`` and the
+per-pair host tail (counterpart of ``torchpiv_tpu/pipeline.py``).
 
 ``OfflinePIV`` keeps the reference constructor ``(folder, device, file_fmt,
 wind_size, overlap, multipass, multipass_mode, dt, scale, multipass_scale,
@@ -20,16 +21,26 @@ With ``mesh=`` the engine runs as a ``parallel.ShardedPIV`` over the mesh:
 batches stay in pinned host memory and ``ShardedPIV`` places each shard's
 slice on its device; the packed results land on the mesh's first device,
 from which the feeder copies them to the host as without a mesh.
+
+``OnlinePIV``, ``VideoPIV`` and the HTTP service (``serve.py``) run the
+engine on the calling thread through ``run_packed``, which enters the
+engine's CUDA device itself: a thread other than the main one (an HTTP
+handler, a GUI worker) would otherwise launch on device 0.  The JAX
+package's compile futures, ahead-of-time executables and fixed-shape batch
+padding are TPU workarounds and have no counterpart: a batch of any size
+runs the same kernels, which are built at their first use.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import logging
+import os
 import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor, wait
-from typing import Generator, Optional, Tuple
+from typing import Callable, Dict, Generator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,16 +50,38 @@ from .io.dataset import PIVDataset, compute_background
 from .io.decode import imread_gray
 from .io.prefetch import PairPrefetcher
 from .io.preprocess import PreprocessedPairs, resolve_preprocess
+from .io.watch import StreamingPairSource
 from .models.multipass import MultipassPIV
 from .ops.infill import fill_missing_values, interpolate_borders
 from .parallel.sharded import ShardedPIV
+from .stats.ensemble import EnsembleAccumulator
+from .utils.config import PIVParams
 from .utils.device import resolve_device
+from .utils.persistence import save_binary, save_table
 
 log = logging.getLogger("torchpiv_tpu_torch")
 
 # pinned [B, 3, R, C] result buffers a call keeps on CUDA: one being written
 # by the feeder, two issued and not yet drained, one in the drainer
 HOST_BUFFERS = 4
+
+
+class DeviceMap:
+    """Device name -> ``torch.device``: the JAX package's ``DeviceMap`` on
+    top of ``utils.device.resolve_device``, whose names it takes
+    (``"auto"``, ``"cpu"``, ``"cuda"``, ``"cuda:<i>"``; ``"tpu"`` raises
+    ``ValueError``, a CUDA name without a card ``RuntimeError``)."""
+
+    @staticmethod
+    def devices() -> Dict[str, torch.device]:
+        table = {"cpu": torch.device("cpu")}
+        if torch.cuda.is_available():
+            table["cuda"] = torch.device("cuda", torch.cuda.current_device())
+            for i in range(torch.cuda.device_count()):
+                table[f"cuda:{i}"] = torch.device("cuda", i)
+        return table
+
+    resolve = staticmethod(resolve_device)
 
 
 def finalize_fields(
@@ -101,6 +134,46 @@ def packed_forward(engine: MultipassPIV, frame_a: torch.Tensor,
     if inval is None:
         inval = torch.zeros_like(u, dtype=torch.bool)
     return torch.stack([u, v, inval.to(u.dtype)], dim=1)
+
+
+def tail_of(engine: MultipassPIV, scale: float, dt: float) -> Callable:
+    """The host tail of ``OfflinePIV`` for ``engine``'s fields: a function
+    of one pair's raw ``(u, v, invalid)`` host arrays that returns its
+    ``(x, y, u, v)``, or None when the pair is skipped.  The NaN + infill
+    tail runs only for ``infill="host"`` with validation: ``"fused"`` is
+    filled on the device already, ``"none"`` asks for raw vectors."""
+    x, y = engine.final_coordinates
+    validates = engine.config.validate and engine.config.infill == "host"
+    static_mask = engine.window_masked[-1]
+    if static_mask is not None:
+        static_mask = static_mask.cpu().numpy()
+
+    def tail(u, v, invalid):
+        return finalize_fields(u, v, invalid if validates else None,
+                               x, y, scale, dt, static_mask)
+
+    return tail
+
+
+def run_packed(engine: MultipassPIV, frames_a, frames_b) -> np.ndarray:
+    """The engine over numpy ``[B, H, W]`` frame stacks (or sequences of
+    ``[H, W]`` frames) on its device; returns the packed ``[B, 3, R, C]``
+    fields on the host.  The calling thread enters the engine's CUDA
+    device for the call."""
+    dev = engine.device
+    with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+        a = torch.from_numpy(np.stack(frames_a)).to(dev)
+        b = torch.from_numpy(np.stack(frames_b)).to(dev)
+        return packed_forward(engine, a, b).cpu().numpy()
+
+
+def fields_of(tail: Callable, packed: np.ndarray) -> Generator:
+    """``tail`` over each pair of a packed ``[B, 3, R, C]`` host array: the
+    fields of the pairs that are not skipped, in order."""
+    for p in packed:
+        res = tail(p[0], p[1], p[2] > 0.5)
+        if res is not None:
+            yield res
 
 
 def resolve_frame_mask(mask):
@@ -290,13 +363,7 @@ class OfflinePIV:
         dev = self._device
         cuda = dev.type == "cuda"
         bg = self._background
-        x, y = engine.final_coordinates
-        # the host NaN + infill tail runs only for infill="host": "fused"
-        # is filled on the device already, "none" asks for raw vectors
-        tail_validates = engine.config.validate and engine.config.infill == "host"
-        static_mask = engine.window_masked[-1]
-        if static_mask is not None:
-            static_mask = static_mask.cpu().numpy()
+        tail = tail_of(engine, self._scale, self._dt)
         span_log = self.span_log
         timing = span_log is not None
         if cuda and self._streams is None:
@@ -455,13 +522,8 @@ class OfflinePIV:
                         arr = host.numpy()
                         u_b, v_b = arr[:, 0], arr[:, 1]
                         inval_b = arr[:, 2] > 0.5
-                        futs = [
-                            pool.submit(
-                                finalize_fields, u_b[i], v_b[i],
-                                inval_b[i] if tail_validates else None,
-                                x, y, self._scale, self._dt, static_mask)
-                            for i in range(len(ids))
-                        ]
+                        futs = [pool.submit(tail, u_b[i], v_b[i], inval_b[i])
+                                for i in range(len(ids))]
                         span = None
                         if timing:
                             span = spans_of(len(ids), stats, copied, t_wait - t0)
@@ -510,3 +572,428 @@ class OfflinePIV:
             stop.set()
             feeder_t.join(timeout=30)
             drainer_t.join(timeout=30)
+
+
+class OnlinePIV:
+    """Streaming PIV: process pairs as a camera writes them into ``folder``.
+
+    Iterating yields ``(x, y, u, v)`` per new pair (only files that appear
+    after construction count); call ``stop()`` (or let ``idle_timeout``
+    expire) to end the stream.
+
+    Dispatch: one engine call a pair while the stream keeps up; when a
+    backlog builds (the camera writes faster than a call takes), pairs are
+    drained in ``catchup_batch``-pair calls, which spread the fixed cost of
+    a call.  ``catchup_batch=1`` turns batching off.
+
+    ``frame_shape`` (the camera geometry, e.g. ``(2048, 2048)``) builds the
+    engine when the stream starts, before its first frame, and runs one
+    warm call of each size on blank frames of that shape: the first pair
+    then pays neither the kernels' build nor cuFFT's plans.  Frames whose
+    shape differs from the engine's are skipped with a warning.
+
+    ``engine_options`` takes any ``PIVConfig`` field, ``frame_mask`` and
+    ``mask_threshold``, as ``OfflinePIV``'s does.  ``dispatches`` counts the
+    engine calls by kind: ``"warm"``, ``"single"`` and ``"catchup"`` (each
+    catch-up call runs ``catchup_batch`` pairs).
+    """
+
+    def __init__(
+        self,
+        folder: str,
+        device: str = "auto",
+        file_fmt: str = ".bmp",
+        wind_size: int = 64,
+        overlap: int = 32,
+        multipass: int = 1,
+        multipass_mode: str = "CWS",
+        dt: float = 1,
+        scale: float = 1.0,
+        multipass_scale: float = 2.0,
+        *,
+        validate: bool = True,
+        poll_interval: float = 0.2,
+        idle_timeout: Optional[float] = None,
+        catchup_batch: int = 4,
+        preprocess="none",
+        frame_shape: Optional[Tuple[int, int]] = None,
+        engine_options: Optional[dict] = None,
+    ) -> None:
+        self._dt = dt
+        self._scale = scale
+        self._preprocess = resolve_preprocess(preprocess)
+        self._device = DeviceMap.resolve(device)
+        self._source = StreamingPairSource(folder, file_fmt, poll_interval,
+                                           idle_timeout)
+        self._catchup = max(1, catchup_batch)
+        engine_options = dict(engine_options or {})
+        self._frame_mask = resolve_frame_mask(engine_options.pop("frame_mask", None))
+        self._mask_threshold = engine_options.pop("mask_threshold", 0.5)
+        self._engine_kwargs = dict(
+            wind_size=wind_size,
+            overlap=overlap,
+            multipass=multipass,
+            multipass_mode=multipass_mode,
+            multipass_scale=multipass_scale,
+            validate=validate,
+            **engine_options,
+        )
+        self._engine: Optional[MultipassPIV] = None
+        self._tail: Optional[Callable] = None
+        self._frame_shape = (tuple(frame_shape)
+                             if frame_shape is not None else None)
+        self.dispatches: collections.Counter = collections.Counter()
+
+    @property
+    def engine(self) -> Optional[MultipassPIV]:
+        return self._engine
+
+    def stop(self) -> None:
+        self._source.stop()
+
+    def _decode(self, name_a, name_b):
+        # A live camera writes files while the watcher polls, so a frame
+        # can be listed before its bytes are complete; a one-shot read
+        # would drop the pair for good.  Retry briefly: a mid-write file
+        # becomes readable milliseconds later, and a corrupt one still
+        # skips after about 0.3 s.
+        frame_a = frame_b = None
+        for attempt in range(3):
+            if attempt:
+                time.sleep(0.05 * attempt)
+            if frame_a is None:
+                frame_a = imread_gray(name_a)
+            if frame_b is None:
+                frame_b = imread_gray(name_b)
+            if frame_a is not None and frame_b is not None:
+                break
+        else:
+            log.warning("online: skipping unreadable pair %s / %s",
+                        name_a, name_b)
+            return None
+        if self._preprocess is not None:
+            frame_a = self._preprocess(frame_a)
+            frame_b = self._preprocess(frame_b)
+        return frame_a, frame_b
+
+    def _ensure_engine(self, frame_shape) -> None:
+        if self._engine is not None:
+            return
+        cfg = PIVConfig(frame_shape=tuple(frame_shape), **self._engine_kwargs)
+        self._engine = MultipassPIV(cfg, device=self._device,
+                                    frame_mask=self._frame_mask,
+                                    mask_threshold=self._mask_threshold)
+        self._tail = tail_of(self._engine, self._scale, self._dt)
+
+    def _dispatch(self, pairs, kind: str) -> np.ndarray:
+        """The engine over ``pairs`` (``(frame_a, frame_b)`` each): packed
+        ``[B, 3, R, C]`` fields on the host."""
+        arr = run_packed(self._engine, [p[0] for p in pairs],
+                         [p[1] for p in pairs])
+        self.dispatches[kind] += 1
+        return arr
+
+    def __call__(self) -> Generator:
+        B = self._catchup
+        if self._frame_shape is not None and self._engine is None:
+            # frames that land meanwhile are new to the first poll: the
+            # watcher listed the folder at construction
+            self._ensure_engine(self._frame_shape)
+            blank = np.zeros(self._frame_shape, np.uint8)
+            for n in sorted({1, B}):
+                self._dispatch([(blank, blank)] * n, "warm")
+        backlog: list = []
+        for burst in self._source.bursts():
+            for name_a, name_b in burst:
+                pair = self._decode(name_a, name_b)
+                if pair is None:
+                    continue
+                if self._engine is None:
+                    self._ensure_engine(pair[0].shape)
+                if pair[0].shape == self._engine.config.frame_shape:
+                    backlog.append(pair)
+                else:
+                    log.warning(
+                        "online: skipping %s: frame shape %s != engine %s",
+                        name_a, pair[0].shape, self._engine.config.frame_shape)
+            while len(backlog) >= B > 1:
+                chunk, backlog = backlog[:B], backlog[B:]
+                yield from fields_of(self._tail, self._dispatch(chunk, "catchup"))
+            while backlog:
+                yield from fields_of(self._tail, self._dispatch([backlog.pop(0)], "single"))
+
+
+class VideoPIV:
+    """PIV over a video file's frame stream (the reference's "PIV Video
+    File" menu intent).  Same generator contract as ``OfflinePIV``: yields
+    ``(x, y, u, v)`` per frame pair, ``batch_size`` pairs an engine call;
+    the last batch may be short (the JAX package pads it to its compiled
+    shape, a TPU workaround the port does not need)."""
+
+    def __init__(
+        self,
+        path: str,
+        device: str = "auto",
+        wind_size: int = 64,
+        overlap: int = 32,
+        multipass: int = 1,
+        multipass_mode: str = "CWS",
+        dt: float = 1,
+        scale: float = 1.0,
+        multipass_scale: float = 2.0,
+        folder_mode: str = "sequential",
+        *,
+        batch_size: int = 4,
+        validate: bool = True,
+        max_pairs: Optional[int] = None,
+        preprocess="none",
+        engine_options: Optional[dict] = None,
+    ) -> None:
+        from .io.video import VideoPairSource
+
+        self._batch = max(1, batch_size)
+        device = DeviceMap.resolve(device)
+        self._source = VideoPairSource(path, folder_mode, max_pairs)
+        self._preprocess = resolve_preprocess(preprocess)
+        engine_options = dict(engine_options or {})
+        frame_mask = resolve_frame_mask(engine_options.pop("frame_mask", None))
+        mask_threshold = engine_options.pop("mask_threshold", 0.5)
+        cfg = PIVConfig(
+            frame_shape=self._source.frame_shape,
+            wind_size=wind_size,
+            overlap=overlap,
+            multipass=multipass,
+            multipass_mode=multipass_mode,
+            multipass_scale=multipass_scale,
+            validate=validate,
+            **engine_options,
+        )
+        self._engine = MultipassPIV(cfg, device=device, frame_mask=frame_mask,
+                                    mask_threshold=mask_threshold)
+        self._tail = tail_of(self._engine, scale, dt)
+
+    @property
+    def engine(self) -> MultipassPIV:
+        return self._engine
+
+    def __len__(self) -> int:
+        return len(self._source)
+
+    def __call__(self) -> Generator:
+        def flush(batch):
+            return fields_of(self._tail, run_packed(
+                self._engine, [a for a, _ in batch], [b for _, b in batch]))
+
+        batch = []
+        for pair in self._source:
+            if self._preprocess is not None:
+                pair = (self._preprocess(pair[0]), self._preprocess(pair[1]))
+            batch.append(pair)
+            if len(batch) == self._batch:
+                yield from flush(batch)
+                batch = []
+        if batch:
+            yield from flush(batch)
+
+
+class _AsyncSaver:
+    """Per-pair saves on a writer thread with a bounded queue (copy of the
+    JAX package's): a synchronous text save a pair would be the pipeline's
+    bottleneck, so writes overlap with compute and push back only when the
+    disk cannot keep up.  Errors surface on the next submit or close."""
+
+    def __init__(self, maxsize: int = 8):
+        self._q: "queue.Queue" = queue.Queue(maxsize=maxsize)
+        self._err: Optional[BaseException] = None
+        self._t = threading.Thread(
+            target=self._run, name="piv-saver", daemon=True)
+        self._t.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            fn, args = item
+            try:
+                fn(*args)
+            except BaseException as e:  # surfaced at next submit/close
+                self._err = e
+
+    def _check(self):
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+    def submit(self, fn, *args) -> None:
+        self._check()
+        self._q.put((fn, args))
+
+    def close(self) -> None:
+        self._q.put(None)
+        self._t.join()
+        self._check()
+
+
+class PIVRunner:
+    """Headless equivalent of the reference's Qt ``PIVWorker``: drives
+    ``OfflinePIV``, reports progress through plain callbacks, supports
+    cooperative pause and stop, optional per-pair saving, and emits the
+    13-column statistics table at the end (counterpart of the JAX
+    package's ``PIVRunner``; nothing here imports Qt).
+
+    ``smooth``: robust smoothn post-smoothing of each field
+    (``stats.smoothing``), True = the GCV-chosen parameter a pair, a float
+    = that parameter.  ``checkpoint_path`` saves the statistics state every
+    ``checkpoint_every`` pairs and on stop, resumes from it, and is removed
+    when the run completes.  ``shard=(index, count)`` processes only that
+    contiguous block of pairs (``parallel.distributed.pair_block``) and
+    keeps its final state at ``checkpoint_path``, marked complete, for
+    ``parallel.merge_checkpoints``.  Other keywords go to ``OfflinePIV``.
+    """
+
+    def __init__(
+        self,
+        params: PIVParams,
+        on_progress: Optional[Callable[[int], None]] = None,
+        on_output: Optional[Callable[[Dict[str, np.ndarray]], None]] = None,
+        on_finished: Optional[Callable[[Dict[str, np.ndarray]], None]] = None,
+        on_failed: Optional[Callable[[], None]] = None,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 50,
+        smooth: bool | float = False,
+        shard: Optional[Tuple[int, int]] = None,
+        **offline_kwargs,
+    ):
+        self.params = params
+        self.on_progress = on_progress or (lambda pct: None)
+        self.on_output = on_output or (lambda out: None)
+        self.on_finished = on_finished or (lambda table: None)
+        self.on_failed = on_failed or (lambda: None)
+        self.is_paused = False
+        self.is_running = True
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = checkpoint_every
+        self.smooth = smooth
+        self.shard = shard
+        self._offline_kwargs = offline_kwargs
+
+    def stop(self) -> None:
+        self.is_running = False
+
+    def pause(self, flag: bool = True) -> None:
+        self.is_paused = flag
+
+    def run(self) -> Optional[Dict[str, np.ndarray]]:
+        from .utils.checkpoint import load_checkpoint, save_checkpoint
+
+        p = self.params
+        acc = EnsembleAccumulator()
+        x = y = None
+        skip = 0
+        if self.checkpoint_path:
+            state = load_checkpoint(self.checkpoint_path)
+            if state is not None:
+                acc, skip, x, y = state
+                log.info("resuming from checkpoint: %d pairs done", skip)
+        shard_start, shard_count = 0, None
+        if self.shard is not None:
+            from .parallel.distributed import pair_block
+
+            si, sn = self.shard
+            n_all = len(PIVDataset(p.folder, p.file_fmt, p.folder_mode))
+            shard_start, shard_count = pair_block(n_all, si, sn)
+            log.info("shard %d/%d: pairs [%d, %d)", si, sn,
+                     shard_start, shard_start + shard_count)
+        piv_gen = OfflinePIV(
+            folder=p.folder,
+            device=p.device,
+            file_fmt=p.file_fmt,
+            wind_size=p.wind_size,
+            overlap=p.overlap,
+            multipass=p.multipass,
+            multipass_mode=p.multipass_mode,
+            dt=p.dt,
+            scale=p.scale,
+            multipass_scale=p.multipass_scale,
+            folder_mode=p.folder_mode,
+            skip_pairs=shard_start + skip,
+            max_pairs=(None if shard_count is None
+                       else max(0, shard_count - skip)),
+            **self._offline_kwargs,
+        )
+        total = len(piv_gen) + skip
+        if total == 0:
+            self.on_failed()
+            return None
+
+        name = os.path.basename(os.path.normpath(p.folder))
+        start = time.perf_counter()
+        done = skip
+        saver = (_AsyncSaver()
+                 if p.save_opt in ("Save all binary", "Save all text")
+                 else None)
+        # statically masked windows (ROI) are zero by contract: the
+        # smoother leaves them out and keeps them at zero; yielded fields
+        # are row-flipped, so is the mask
+        wm = None
+        if self.smooth and piv_gen.engine is not None \
+                and piv_gen.engine.window_masked[-1] is not None:
+            wm = np.flip(piv_gen.engine.window_masked[-1].cpu().numpy(), axis=0)
+        for x, y, u, v in piv_gen():
+            while self.is_paused and self.is_running:
+                time.sleep(0.02)
+            if not self.is_running:
+                break
+            if self.smooth:
+                from .stats.smoothing import smooth_vector_field
+
+                s = None if self.smooth is True else float(self.smooth)
+                u, v = smooth_vector_field(u, v, mask=wm, s=s, robust=True)
+                if wm is not None:
+                    u[wm] = 0.0
+                    v[wm] = 0.0
+            acc.add(u, v)
+            done += 1
+            self.on_progress(int(done / total * 100))
+            output = {"x[mm]": x, "y[mm]": y, "Vx[m/s]": u, "Vy[m/s]": v}
+            # per-pair saves overlap with compute on the writer thread (the
+            # yielded arrays are not changed after this point); the single
+            # writer keeps the files in pair order
+            if p.save_opt == "Save all binary":
+                saver.submit(save_binary, f"{name}_pair.npy", p.save_dir,
+                             dict(output))
+            elif p.save_opt == "Save all text":
+                saver.submit(save_table, f"{name}_pair.txt", p.save_dir,
+                             dict(output))
+            self.on_output(output)
+            if (
+                self.checkpoint_path
+                and self.checkpoint_every
+                and done % self.checkpoint_every == 0
+            ):
+                save_checkpoint(self.checkpoint_path, acc, done, x, y)
+
+        if saver is not None:
+            saver.close()  # drain pending writes; re-raise any save error
+        if acc.n == 0:
+            self.on_failed()
+            return None
+        if self.checkpoint_path and self.is_running is False:
+            # interrupted: keep the progress for a resume
+            save_checkpoint(self.checkpoint_path, acc, done, x, y)
+        log.info("avg PIV time %.0f ms",
+                 (time.perf_counter() - start) / acc.n * 1000)
+        table = acc.finalize(x, y)
+        if p.save_opt != "Dont save":
+            save_table(f"{name}_statistics.txt", p.save_dir, dict(table))
+        if self.checkpoint_path and self.is_running:
+            if self.shard is not None:
+                # shard mode: the final state is the product, merged later;
+                # complete=True tells it from an interrupted shard's
+                save_checkpoint(self.checkpoint_path, acc, done, x, y,
+                                complete=True)
+            elif os.path.exists(self.checkpoint_path):
+                os.remove(self.checkpoint_path)  # completed: no resume state
+        self.on_finished(table)
+        return table

@@ -12,10 +12,17 @@ import torch
 
 def resolve_device(device: Union[str, torch.device, None] = "auto") -> torch.device:
     """``"auto"``/``"default"``/``""``/``None``/``"cuda"`` -> the current
-    CUDA device (raises when there is none); ``"cpu"`` or ``"cuda:<i>"`` as
-    given."""
+    CUDA device (raises ``RuntimeError`` naming ``device='cpu'`` when there
+    is none); ``"cpu"`` or ``"cuda:<i>"`` (a ``torch.device`` or its
+    ``str`` too) as given.  Any other name, ``"tpu"`` among them, raises
+    ``ValueError``: a name is never mapped to another device."""
     auto = device is None or device in ("", "auto", "default")
-    dev = torch.device("cuda" if auto else device)
+    name = "cuda" if auto else str(device)
+    platform, _, idx = name.partition(":")
+    if name != "cpu" and not (platform == "cuda" and (idx == "" or idx.isdigit())):
+        raise ValueError(f"unknown device {name!r}: the port takes 'auto', "
+                         f"'cpu', 'cuda' and 'cuda:<i>'")
+    dev = torch.device(name)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -23,8 +30,9 @@ def resolve_device(device: Union[str, torch.device, None] = "auto") -> torch.dev
                 f"(pass device='cpu' to run on the CPU)")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {str(device)!r}")
+        elif dev.index >= torch.cuda.device_count():
+            raise ValueError(f"unknown device {name!r}: there are "
+                             f"{torch.cuda.device_count()} CUDA device(s)")
     return dev
 
 
