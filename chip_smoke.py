@@ -95,7 +95,25 @@ Phases, each failing loudly:
    (one pair, the burst bit-equal to ``OfflinePIV``, a file pair, health,
    config and metrics, request and per-pair latencies), and a second
    service with ``fused="on"`` (row 6's launches exact).  Every reading
-   carries the card's name and power limit.
+   carries the card's name and power limit;
+11. the other device-path models at the same full width
+   (``phase_models``): ``EnsemblePIV`` over 16 sparse pairs (density
+   0.002, seeds 200-215; single pass, w64/o32, both peak fits: mean
+   displacement, valid share beside the single-pair engine's, the fused
+   peak fit launched once a field with ``peakfit="pallas"`` and never
+   with ``"xla"``, ``corr_batch`` over two batches of 8 against one call,
+   device ms); ``MultiDtPIV`` on a 5-frame ``render_particles`` sequence
+   at 0.8 px/frame, separations (1, 2, 4), 2-pass CWS (u, ``dt_map``, the
+   shift kernel launched twice for the one batched engine call);
+   ``FolkiPIV`` dense on the first uniform pair (the JAX test's gates) and
+   hybrid on an (11, 0) px pair with a 2-pass CWS engine; ``PTV`` at PTV
+   seeding (density 0.003, capacity 16384), plain, guided, and guided with
+   the left half masked (no detection inside), ``bin_to_grid`` of the
+   guided tracks, detection device ms beside matching host ms; the quality
+   maps (median peak width against the 1.50 px the particles imply) and
+   the SAD matchers timed at the pass-1 shape; then each model and map on
+   one 1024x1024 pair on the card against the CPU.  Every reading carries
+   the card's name and power limit.
 
 Phase 3 also runs ``tools/shift_anatomy_cuda.py``'s six modes of the
 window-shift kernel at pass 2 (``full``, ``noshuffle`` and ``rowbyrow``
@@ -2419,6 +2437,340 @@ def phase_streaming(uniform: str, tmp: str, kernels, cws_fields, smi: str) -> di
     return out
 
 
+# ---- phase 11: the other device-path models ----------------------------------
+
+N_ENSEMBLE = 16  # sparse pairs of the ensemble: seeds 200-215
+ENSEMBLE_DENSITY = 0.002  # particles a pixel: micro-PIV seeding
+SEQ_DU = 0.8  # px/frame of the multi-frame sequence
+SEPARATIONS = (1, 2, 4)
+HYBRID_DISPLACEMENT = (11.0, 0.0)  # beyond dense LK's capture range
+PTV_DENSITY = 0.003  # about 12.6k particles at 2048 x 2048
+PTV_CAPACITY = 16384
+REFERENCE_FRAME = (1024, 1024)  # the CUDA-against-CPU pair
+# the correlation peak of particle images of diameter 2.5 px: their
+# autocorrelation, sigma = sqrt(2) * 2.5 / 2.354
+PEAK_SIGMA = float(np.sqrt(2.0) * 2.5 / 2.354)
+
+
+def call_times(fn, reps: int = 3) -> dict:
+    """A call's device time and device events (``device_time``, one call
+    under ``torch.profiler``) beside its time on the card's clock (CUDA
+    events around ``reps`` calls, ``cuda_ms``: the host's waits count
+    there, as in a user's loop)."""
+    dev_ms, events = device_time(fn)
+    return {"device_ms": dev_ms, "events": events, "call_ms": cuda_ms(fn, reps=reps)}
+
+
+def times_text(t: dict) -> str:
+    return (f"{t['device_ms']:.3f} ms of device time in {t['events']} device events, "
+            f"{t['call_ms']:.3f} ms a call on the card's clock")
+
+
+def sparse_batch(shape, n: int, seed: int, density: float):
+    """``n`` pairs at the uniform displacement and ``density``, seeds
+    ``seed .. seed + n - 1``, as ``[n, H, W]`` tensors."""
+    from torchpiv_tpu_torch.utils.synthetic import particle_pair
+
+    pairs = [particle_pair(shape, DISPLACEMENT, density=density, seed=seed + i)
+             for i in range(n)]
+    return (torch.from_numpy(np.stack([p[0] for p in pairs])),
+            torch.from_numpy(np.stack([p[1] for p in pairs])))
+
+
+def moving_sequence(shape, du: float, seed: int) -> np.ndarray:
+    """Five ``render_particles`` frames of one particle set moving ``du`` px
+    a frame in x."""
+    from torchpiv_tpu_torch.utils.synthetic import render_particles
+
+    rng = np.random.default_rng(seed)
+    H, W = shape
+    n = int(0.02 * H * W)
+    xs, ys = rng.uniform(0, W, n), rng.uniform(0, H, n)
+    inten = rng.uniform(100, 220, n)
+    return np.stack([np.clip(render_particles(shape, xs + du * t, ys, inten), 0, 255)
+                     .astype(np.uint8) for t in range(5)])
+
+
+def models_ensemble(kernels, smi: str) -> None:
+    """``EnsemblePIV`` over the 16 sparse pairs, w64/o32, both peak fits."""
+    from torchpiv_tpu_torch import MultipassPIV, PIVConfig
+    from torchpiv_tpu_torch.models import EnsemblePIV
+
+    A, B = sparse_batch(FRAME, N_ENSEMBLE, 200, ENSEMBLE_DENSITY)
+    A, B = A.cuda(), B.cuda()
+    for fit in ("xla", "pallas"):
+        label = f"EnsemblePIV peakfit={fit}"
+        cfg = PIVConfig(frame_shape=FRAME, wind_size=64, overlap=32, multipass=1, peakfit=fit)
+        em = EnsemblePIV(cfg)
+        zero_counts(kernels)
+        u, v, inval = em(A, B)
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        check(launches == only(launches, peakfit=1 if fit == "pallas" else 0),
+              f"{label}: launches {launches}")
+        ok = ~inval
+        share = float(ok.float().mean())
+        mu, mv = float(u[ok].mean()), float(v[ok].mean())
+        check(share > 0.95, f"{label}: valid share {share}")
+        check(abs(mu - DISPLACEMENT[0]) < 0.05 and abs(mv - DISPLACEMENT[1]) < 0.05,
+              f"{label}: mean displacement ({mu}, {mv})")
+        acc = sum(em.corr_batch(A[s], B[s]) for s in (slice(0, 8), slice(8, 16)))
+        su, sv, sinval = em.finalize(acc / N_ENSEMBLE)
+        gap = float(torch.maximum((su - u).abs(), (sv - v).abs()).max())
+        check(gap <= 1e-4 and torch.equal(sinval, inval),
+              f"{label}: two batches of 8 summed differ by {gap} px")
+        t = call_times(lambda: em(A, B))
+        log(f"{label} ({smi}): {N_ENSEMBLE} pairs at density {ENSEMBLE_DENSITY}, mean "
+            f"({mu:.4f}, {mv:.4f}) px on valid windows, valid share {share:.4f}; "
+            f"corr_batch over 2 x 8 within {gap:.3e} px of one call; peakfit launches "
+            f"{launches['peakfit']}; a batch of {N_ENSEMBLE}: {times_text(t)}")
+    engine = MultipassPIV(PIVConfig(frame_shape=FRAME, wind_size=64, overlap=32, multipass=1))
+    single = float((~engine(A, B)[2]).float().mean())
+    log(f"EnsemblePIV ({smi}): the single-pair engine on the same pairs: valid share "
+        f"{single:.4f} (the ensemble's {share:.4f})")
+
+
+def models_multidt(kernels, smi: str) -> None:
+    """``MultiDtPIV`` on a 5-frame sequence at 0.8 px/frame, separations
+    (1, 2, 4), 2-pass CWS w64/o32: one engine call over the 3 pairs."""
+    from torchpiv_tpu_torch import PIVConfig
+    from torchpiv_tpu_torch.models import MultiDtPIV
+
+    frames = moving_sequence(FRAME, SEQ_DU, seed=500)
+    mdt = MultiDtPIV(PIVConfig(frame_shape=FRAME, wind_size=64, overlap=32, multipass=2),
+                     separations=SEPARATIONS)
+    mdt(frames, 0)  # cuFFT plans for the batch of 3
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    res = mdt(frames, 0)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts(kernels)
+    check(launches == only(launches, shift_windows=2), f"MultiDtPIV: launches {launches}")
+    ok = ~res.invalid
+    mu = float(res.u[ok].mean())
+    long_share = float((res.dt_map == SEPARATIONS[-1]).mean())
+    check(abs(mu - SEQ_DU) < 0.02, f"MultiDtPIV: mean u {mu} px/frame")
+    check(long_share >= 0.95, f"MultiDtPIV: dt_map == 4 on {long_share}")
+    dev = torch.from_numpy(frames).cuda()
+    t = call_times(lambda: mdt.engine(dev[:1].expand(3, -1, -1), dev[[1, 2, 4]]))
+    log(f"MultiDtPIV ({smi}): mean u {mu:.4f} px/frame (expected {SEQ_DU}), dt_map == 4 "
+        f"on {long_share:.4f}, valid share {float(ok.mean()):.4f}; shift_windows "
+        f"launches {launches['shift_windows']} for the one batched call; the engine "
+        f"on the 3 pairs: {times_text(t)}; {wall_ms:.1f} ms a snapshot on the host "
+        f"clock (frames from the host, merge included)")
+
+
+def models_folki(fa: np.ndarray, fb: np.ndarray, kernels, smi: str) -> None:
+    """``FolkiPIV`` dense (w32/o16, radius 8, 8 iterations, 3 levels) on the
+    first uniform pair, and hybrid on an (11, 0) px pair with a 2-pass CWS
+    w64/o32 engine."""
+    from torchpiv_tpu_torch import PIVConfig
+    from torchpiv_tpu_torch.models import FolkiPIV, folki_flow
+    from torchpiv_tpu_torch.utils.synthetic import particle_pair
+
+    fp = FolkiPIV(FRAME, 32, 16)
+    a, b = torch.from_numpy(fa).cuda(), torch.from_numpy(fb).cuda()
+    u, v = (t.cpu().numpy() for t in folki_flow(a, b))
+    du = float(np.abs(u[24:-24, 24:-24] - DISPLACEMENT[0]).mean())
+    dv = float(np.abs(v[24:-24, 24:-24] - DISPLACEMENT[1]).mean())
+    ug, vg, bad = fp(a, b)
+    gu = float(np.abs(ug[2:-2, 2:-2] - DISPLACEMENT[0]).mean())
+    check(du < 0.03 and dv < 0.03, f"folki_flow: interior mean abs error ({du}, {dv})")
+    check(gu < 0.03 and bad.mean() < 0.2, f"FolkiPIV: grid error {gu}, bad {bad.mean()}")
+    dense = call_times(lambda: fp.grid_output(a, b, *folki_flow(a, b)))
+    log(f"FolkiPIV dense ({smi}): interior mean abs error ({du:.4f}, {dv:.4f}) px "
+        f"dense, {gu:.4f} px on the grid, bad share {bad.mean():.4f}; a pair (flow "
+        f"and grid fit, on the card): {times_text(dense)}")
+    ha, hb = particle_pair(FRAME, HYBRID_DISPLACEMENT, seed=600)
+    cfg = PIVConfig(frame_shape=FRAME, wind_size=64, overlap=32, multipass=2)
+    hp = FolkiPIV(FRAME, 32, 16, piv_config=cfg)
+    hp(ha, hb)  # cuFFT plans
+    zero_counts(kernels)
+    hu, hv, hbad = hp(ha, hb)
+    launches = read_counts(kernels)
+    check(launches == only(launches, shift_windows=2), f"FolkiPIV hybrid: launches {launches}")
+    eu = float(np.abs(hu - HYBRID_DISPLACEMENT[0]).mean())
+    ev = float(np.abs(hv - HYBRID_DISPLACEMENT[1]).mean())
+    check(eu < 0.05 and ev < 0.05, f"FolkiPIV hybrid: mean abs error ({eu}, {ev})")
+    a2, b2 = torch.from_numpy(ha).cuda(), torch.from_numpy(hb).cuda()
+    hybrid = call_times(lambda: hp(a2, b2))
+    log(f"FolkiPIV hybrid ({smi}): mean abs error ({eu:.4f}, {ev:.4f}) px at "
+        f"{HYBRID_DISPLACEMENT} px, invalid share {hbad.mean():.4f}, shift_windows "
+        f"launches {launches['shift_windows']}; a pair (the call waits for the "
+        f"engine's field on the host): {times_text(hybrid)}")
+
+
+def models_ptv(kernels, smi: str) -> None:
+    """``PTV`` at PTV seeding (density 0.003, capacity 16384), plain and
+    PIV-guided (2-pass CWS w64/o32), one run with the left half masked, and
+    ``bin_to_grid`` of the guided tracks."""
+    from torchpiv_tpu_torch import PIVConfig
+    from torchpiv_tpu_torch.models import PTV, bin_to_grid, match_particles
+    from torchpiv_tpu_torch.ops.particles import detect_particles
+    from torchpiv_tpu_torch.utils.synthetic import particle_pair
+
+    fa, fb = particle_pair(FRAME, DISPLACEMENT, density=PTV_DENSITY, seed=700)
+    cfg = PIVConfig(frame_shape=FRAME, wind_size=64, overlap=32, multipass=2)
+    half = np.zeros(FRAME, bool)
+    half[:, :FRAME[1] // 2] = True
+    frames = torch.from_numpy(np.stack([fa, fb])).cuda()
+    tracks = {}
+    for label, kw in (("plain", {}), ("guided", {"piv_config": cfg}),
+                      ("guided, left half masked", {"piv_config": cfg, "frame_mask": half})):
+        ptv = PTV(FRAME, max_particles=PTV_CAPACITY, **kw)
+        ptv(fa, fb)  # cuFFT plans
+        zero_counts(kernels)
+        res = ptv(fa, fb)
+        launches = read_counts(kernels)
+        want = 2 if "piv_config" in kw else 0
+        check(launches == only(launches, shift_windows=want), f"PTV {label}: launches {launches}")
+        mu, mv = float(np.median(res.u)), float(np.median(res.v))
+        matched = len(res.x) / max(res.n_a, 1)
+        check(abs(mu - DISPLACEMENT[0]) < 0.05 and abs(mv - DISPLACEMENT[1]) < 0.05,
+              f"PTV {label}: median ({mu}, {mv})")
+        check(matched > 0.8, f"PTV {label}: matched share {matched}")
+        if "frame_mask" in kw:
+            inside = sum(int((np.rint(x) < FRAME[1] // 2).sum()) for x, _ in ptv.detect(frames))
+            check(inside == 0 and (res.x >= FRAME[1] // 2 - 0.5).all(),
+                  f"PTV {label}: {inside} detections inside the mask")
+        log(f"PTV {label} ({smi}): {res.n_a} / {res.n_b} particles detected, "
+            f"{len(res.x)} tracks ({matched:.4f} of frame A's), median "
+            f"({mu:.4f}, {mv:.4f}) px, shift_windows launches {launches['shift_windows']}")
+        tracks[label] = res
+    res = tracks["guided"]
+    _, _, gu, _, _ = bin_to_grid(res.x, res.y, res.u, res.v, FRAME, 64, 32)
+    filled = np.isfinite(gu)
+    check(filled.mean() > 0.95 and abs(np.nanmedian(gu) - DISPLACEMENT[0]) < 0.05,
+          f"bin_to_grid: {filled.mean()} nodes filled, median u {np.nanmedian(gu)}")
+    detect = call_times(lambda: detect_particles(frames, PTV_CAPACITY, 3, smooth_sigma=1.3))
+    (dxa, dya), (dxb, dyb) = PTV(FRAME, max_particles=PTV_CAPACITY).detect(frames)
+    t0 = time.perf_counter()
+    match_particles(dxa, dya, dxb, dyb, radius=10.0)
+    match_ms = (time.perf_counter() - t0) * 1e3
+    log(f"PTV ({smi}): bin_to_grid of the guided tracks on the w64/o32 grid: "
+        f"{filled.mean():.4f} of the nodes filled, median u {np.nanmedian(gu):.4f} px; "
+        f"detection of both frames: {times_text(detect)}; matching {match_ms:.1f} ms "
+        f"on the host clock ({len(dxa)} against {len(dxb)} particles)")
+
+
+def models_quality(fa: np.ndarray, fb: np.ndarray, smi: str) -> None:
+    """The quality maps on the first uniform pair at w64/o32, and the SAD
+    matchers timed at the pass-1 shape."""
+    from torchpiv_tpu_torch.ops.sad import fast_sad, sad_fft
+    from torchpiv_tpu_torch.ops.windows import extract_windows
+    from torchpiv_tpu_torch.stats import quality
+
+    a, b = torch.from_numpy(fa).cuda(), torch.from_numpy(fb).cuda()
+    snr = quality.snr_map(a, b, 64, 32)
+    sx, sy = quality.peak_width_map(a, b, 64, 32)
+    su, sv = quality.uncertainty_map(a, b, 64, 32)
+    width = float(np.nanmedian(np.concatenate([sx.ravel(), sy.ravel()])))
+    check(abs(width / PEAK_SIGMA - 1) < 0.25,
+          f"peak_width_map: median {width} px against {PEAK_SIGMA}")
+    check(np.isfinite(snr).all() and np.nanmedian(snr) > 1.2,
+          f"snr_map: median {np.nanmedian(snr)}")
+    check(np.isfinite(su).mean() > 0.95 and float(np.nanmedian(su)) < 0.5,
+          f"uncertainty_map: median {np.nanmedian(su)}")
+    ms = {name: call_times(lambda f=getattr(quality, name): f(a, b, 64, 32))
+          for name in ("snr_map", "peak_width_map", "uncertainty_map")}
+    wa, wb = extract_windows(a, 64, 32), extract_windows(b, 64, 32)
+    ms["fast_sad"] = call_times(lambda: fast_sad(wa, wb))
+    ms["sad_fft"] = call_times(lambda: sad_fft(wa, wb))
+    log(f"quality maps ({smi}): snr median {np.nanmedian(snr):.3f}, peak width median "
+        f"{width:.4f} px against {PEAK_SIGMA:.4f} implied by the particles, "
+        f"uncertainty median ({np.nanmedian(su):.4f}, {np.nanmedian(sv):.4f}) px")
+    for k, t in ms.items():
+        log(f"{k} ({smi}) at w64/o32 on one pair ({wa.shape[0]} windows"
+            f"{'; the map ends in a copy to the host' if k.endswith('map') else ''}): "
+            f"{times_text(t)}")
+
+
+def models_against_cpu(smi: str) -> None:
+    """Each new model and map on one 1024 x 1024 pair on the card and on the
+    CPU, under the tolerances of the port's CPU tests against the JAX
+    package."""
+    from torchpiv_tpu_torch import PIVConfig
+    from torchpiv_tpu_torch.models import PTV, EnsemblePIV, FolkiPIV, MultiDtPIV
+    from torchpiv_tpu_torch.stats import quality
+    from torchpiv_tpu_torch.utils.synthetic import particle_pair
+
+    S = REFERENCE_FRAME
+    cfg1 = PIVConfig(frame_shape=S, wind_size=64, overlap=32, multipass=1, peakfit="pallas")
+    cfg2 = PIVConfig(frame_shape=S, wind_size=64, overlap=32, multipass=2)
+    gaps = {}
+    A, B = sparse_batch(S, 4, 800, ENSEMBLE_DENSITY)
+    got = [t.cpu() for t in EnsemblePIV(cfg1)(A, B)]
+    want = EnsemblePIV(cfg1, device="cpu")(A, B)
+    check(torch.equal(got[2], want[2]), "EnsemblePIV: masks differ on the card")
+    gaps["EnsemblePIV"] = float(max((got[i] - want[i]).abs()[~want[2]].max() for i in (0, 1)))
+    frames = moving_sequence(S, SEQ_DU, seed=801)
+    g, w = MultiDtPIV(cfg2)(frames, 0), MultiDtPIV(cfg2, device="cpu")(frames, 0)
+    both = ~(g.invalid | w.invalid)
+    check(np.mean(g.invalid != w.invalid) < 0.02 and np.mean(g.dt_map == w.dt_map) >= 0.98,
+          "MultiDtPIV: masks or dt_map differ on the card")
+    gaps["MultiDtPIV"] = float(np.sqrt(np.mean((g.u - w.u)[both] ** 2)))
+    fa, fb = particle_pair(S, DISPLACEMENT, seed=802)
+    ha, hb = particle_pair(S, HYBRID_DISPLACEMENT, seed=803)
+    for label, pc, (x, y) in (("FolkiPIV dense", None, (fa, fb)),
+                              ("FolkiPIV hybrid", cfg2, (ha, hb))):
+        g = FolkiPIV(S, 32, 16, piv_config=pc)(x, y)
+        w = FolkiPIV(S, 32, 16, piv_config=pc, device="cpu")(x, y)
+        check(np.mean(g[2] != w[2]) <= 0.02, f"{label}: bad masks differ on the card")
+        gaps[label] = float(max(np.sqrt(np.mean((g[i] - w[i]) ** 2)) for i in (0, 1)))
+    pa, pb = particle_pair(S, DISPLACEMENT, density=PTV_DENSITY, seed=804)
+    for label, pc in (("PTV", None), ("PTV guided", cfg2)):
+        g = PTV(S, piv_config=pc, max_particles=PTV_CAPACITY)(pa, pb)
+        w = PTV(S, piv_config=pc, max_particles=PTV_CAPACITY, device="cpu")(pa, pb)
+        gt = {(round(float(x), 3), round(float(y), 3)): (u, v)
+              for x, y, u, v in zip(g.x, g.y, g.u, g.v)}
+        wt = {(round(float(x), 3), round(float(y), 3)): (u, v)
+              for x, y, u, v in zip(w.x, w.y, w.u, w.v)}
+        common = set(gt) & set(wt)
+        check((g.n_a, g.n_b) == (w.n_a, w.n_b)
+              and len(common) >= 0.99 * max(len(gt), len(wt)),
+              f"{label}: detections or tracks differ on the card")
+        gaps[label] = float(max(max(abs(gt[k][0] - wt[k][0]), abs(gt[k][1] - wt[k][1]))
+                                for k in common))
+    for name in ("snr_map", "peak_width_map", "uncertainty_map"):
+        g = getattr(quality, name)(fa, fb, 64, 32)
+        w = getattr(quality, name)(fa, fb, 64, 32, device="cpu")
+        rel = 0.0
+        for gm, wm in zip(*(m if isinstance(m, tuple) else (m,) for m in (g, w))):
+            check(np.array_equal(np.isnan(gm), np.isnan(wm)), f"{name}: NaN pattern differs")
+            fin = np.isfinite(wm)
+            rel = max(rel, float(np.max(np.abs(gm[fin] - wm[fin]) / np.abs(wm[fin]))))
+        gaps[name] = rel
+    # a track's u, v is the difference of two float32 positions, which are
+    # resolved to 6.1e-5 px near 1024 px: 1e-4 px plus two of those steps
+    track = 1e-4 + 2 * float(np.spacing(np.float32(max(S) - 1)))
+    limits = {"EnsemblePIV": 1e-4, "MultiDtPIV": 0.01, "FolkiPIV dense": 1e-3,
+              "FolkiPIV hybrid": 1e-3, "PTV": track, "PTV guided": track,
+              "snr_map": 1e-4, "peak_width_map": 1e-4, "uncertainty_map": 1e-4}
+    for k, gap in gaps.items():
+        check(gap <= limits[k], f"{k}: CUDA against CPU {gap} over {limits[k]}")
+    log(f"models, CUDA against CPU on one {S} pair ({smi}): "
+        + ", ".join(f"{k} {gaps[k]:.3e} (limit {limits[k]})" for k in gaps)
+        + " (px: max abs, RMS for MultiDtPIV and FOLKI; relative for the maps)")
+
+
+def phase_models(uniform: str, kernels, smi: str) -> None:
+    """Phase 11: ``EnsemblePIV``, ``MultiDtPIV``, ``FolkiPIV`` dense and
+    hybrid, ``PTV`` plain, guided and masked, the quality maps and the SAD
+    matchers at 2048 x 2048, then each against the CPU at 1024 x 1024."""
+    from torchpiv_tpu_torch.io.dataset import PIVDataset
+
+    t0 = time.perf_counter()
+    fa, fb = PIVDataset(uniform, ".bmp")[0]
+    models_ensemble(kernels, smi)
+    models_multidt(kernels, smi)
+    models_folki(fa, fb, kernels, smi)
+    models_ptv(kernels, smi)
+    models_quality(fa, fb, smi)
+    models_against_cpu(smi)
+    log(f"models phase: {time.perf_counter() - t0:.1f} s")
+
+
 def video_stand_in(videos: dict):
     """A stand-in for OpenCV's ``cv2`` module where the card's machine has
     none: ``VideoCapture(path)`` over the decoded ``[H, W]`` uint8 frames
@@ -2559,6 +2911,8 @@ def main() -> int:
         log(f"mesh phase done at {time.perf_counter() - t_start:.1f} s")
         phase_streaming(uniform, tmp, KERNELS, cws_fields, smi)
         log(f"streaming phase done at {time.perf_counter() - t_start:.1f} s")
+        phase_models(uniform, KERNELS, smi)
+        log(f"models phase done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the path that runs it
     on_path = {"shift_windows": cws_launches, "shift_windows_bicubic": bicubic_launches,
                "def_windows": def_launches, "peakfit": def_launches,

@@ -6,7 +6,11 @@ kernels' launches on the OfflinePIV paths, the pipeline's stages and
 background on the card, the exact modes of the two anatomy tools, the
 ``dtype`` knob on the kernel paths, and OnlinePIV, VideoPIV, the HTTP
 service and PIVRunner on the card against the same entry points on the
-CPU.  Every test skips without a CUDA
+CPU, and EnsemblePIV, MultiDtPIV, FolkiPIV, PTV, the quality maps, the SAD
+matchers, the particle detector and the blur on the card against the CPU
+(the tolerances of their CPU tests against the JAX package; the fused peak
+fit launched once an ensemble field, the shift kernel twice a multi-frame
+snapshot).  Every test skips without a CUDA
 device.  The file imports neither JAX nor the JAX package, so it also runs
 where JAX is not installed:
 
@@ -1285,3 +1289,143 @@ def test_runner_on_the_card(card, tmp_path):
         d = np.abs(tables["auto"][key] - tables["cpu"][key]) / 1000.0
         assert np.sqrt(np.mean(d ** 2)) < 0.01
     np.testing.assert_array_equal(tables["auto"]["x[mm]"], tables["cpu"]["x[mm]"])
+
+
+# ---- the other device-path models: EnsemblePIV, MultiDtPIV, FolkiPIV, PTV,
+# the quality maps, the SAD matchers, the particle detector and the blur ------
+
+MODEL_SHAPE = (256, 256)
+
+
+def test_gaussian_blur_and_sad_on_the_card(card):
+    from torchpiv_tpu_torch.ops.filters import gaussian_blur
+    from torchpiv_tpu_torch.ops.sad import fast_sad, sad_fft
+
+    fa, fb = particle_pair(MODEL_SHAPE, (3.3, -2.1), seed=21)
+    a, b = torch.from_numpy(fa), torch.from_numpy(fb)
+    for sigma, truncate in ((1.0, 3.0), (1.3, 2.5)):
+        got = gaussian_blur(a.to(card).float(), sigma, truncate).cpu()
+        assert (got - gaussian_blur(a.float(), sigma, truncate)).abs().max() <= 1e-5 * 255
+    wa, wb = extract_windows(a, 32, 16), extract_windows(b, 32, 16)
+    for g, w in zip(fast_sad(wa.to(card), wb.to(card)), fast_sad(wa, wb)):
+        assert (g.cpu() - w).abs().max() <= 1e-5
+    got, want = sad_fft(wa.to(card), wb.to(card)).cpu(), sad_fft(wa, wb)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_blur_refuses_tf32(card, monkeypatch):
+    from torchpiv_tpu_torch.ops.filters import gaussian_blur
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="TF32"):
+        gaussian_blur(torch.zeros(8, 8, device=card), 1.0)
+
+
+def test_detect_particles_on_the_card(card):
+    from torchpiv_tpu_torch.ops.particles import detect_particles
+
+    frames = torch.from_numpy(np.stack(particle_pair(MODEL_SHAPE, (2.3, -1.2),
+                                                     density=0.01, seed=22)))
+    got = [t.cpu() for t in detect_particles(frames.to(card), 2048, 3, smooth_sigma=1.3)]
+    want = detect_particles(frames, 2048, 3, smooth_sigma=1.3)
+    for i in range(2):
+        g = sorted(zip(got[1][i][got[3][i]].tolist(), got[0][i][got[3][i]].tolist()))
+        w = sorted(zip(want[1][i][want[3][i]].tolist(), want[0][i][want[3][i]].tolist()))
+        assert len(g) == len(w) > 100
+        assert np.abs(np.array(g) - np.array(w)).max() <= 1e-4
+
+
+@pytest.mark.parametrize("fit", ["xla", "pallas"])
+def test_ensemble_on_the_card(card, fit):
+    from torchpiv_tpu_torch.models import EnsemblePIV
+
+    pairs = [particle_pair(MODEL_SHAPE, (3.3, -2.1), density=0.002, seed=230 + i)
+             for i in range(4)]
+    A = torch.from_numpy(np.stack([p[0] for p in pairs]))
+    B = torch.from_numpy(np.stack([p[1] for p in pairs]))
+    cfg = PIVConfig(frame_shape=MODEL_SHAPE, wind_size=64, overlap=32, multipass=1,
+                    peakfit=fit)
+    em = EnsemblePIV(cfg, device=card)
+    peakfit.launches = 0
+    cu, cv, ci = (t.cpu().numpy() for t in em(A, B))
+    assert peakfit.launches == (1 if fit == "pallas" else 0)
+    pu, pv, pi = (t.numpy() for t in EnsemblePIV(cfg, device="cpu")(A, B))
+    np.testing.assert_array_equal(ci, pi)
+    assert np.abs(cu - pu)[~ci].max() <= 1e-4 and np.abs(cv - pv)[~ci].max() <= 1e-4
+
+
+def test_multidt_on_the_card(card):
+    from torchpiv_tpu_torch.models import MultiDtPIV
+    from torchpiv_tpu_torch.utils.synthetic import render_particles
+
+    rng = np.random.default_rng(4)
+    n = int(0.02 * 256 * 256)
+    xs, ys, inten = rng.uniform(0, 256, n), rng.uniform(0, 256, n), rng.uniform(100, 220, n)
+    frames = np.stack([np.clip(render_particles(MODEL_SHAPE, xs + 0.8 * t, ys, inten), 0, 255)
+                       .astype(np.uint8) for t in range(5)])
+    cfg = PIVConfig(frame_shape=MODEL_SHAPE, wind_size=64, overlap=32, multipass=2)
+    shift_windows.launches = 0
+    got = MultiDtPIV(cfg, device=card)(frames, 0)
+    assert shift_windows.launches == 2  # one batched engine call
+    want = MultiDtPIV(cfg, device="cpu")(frames, 0)
+    assert np.mean(got.invalid != want.invalid) < 0.02
+    both = ~(got.invalid | want.invalid)
+    assert np.sqrt(np.mean((got.u - want.u)[both] ** 2)) < 0.01
+    assert np.mean(got.dt_map == want.dt_map) >= 0.98
+
+
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_folki_on_the_card(card, hybrid):
+    from torchpiv_tpu_torch.models import FolkiPIV, folki_flow
+
+    disp = (11.0, 0.0) if hybrid else (3.3, -2.1)
+    fa, fb = particle_pair(MODEL_SHAPE, disp, seed=23, density=0.02)
+    cfg = (PIVConfig(frame_shape=MODEL_SHAPE, wind_size=64, overlap=32, multipass=2)
+           if hybrid else None)
+    if not hybrid:
+        a, b = torch.from_numpy(fa), torch.from_numpy(fb)
+        du, dv = (t.cpu() for t in folki_flow(a.to(card), b.to(card), levels=3))
+        pu, pv = folki_flow(a, b, levels=3)
+        assert ((du - pu) ** 2).mean().sqrt() <= 1e-3 and ((dv - pv) ** 2).mean().sqrt() <= 1e-3
+    got = FolkiPIV(MODEL_SHAPE, 32, 16, piv_config=cfg, device=card)(fa, fb)
+    want = FolkiPIV(MODEL_SHAPE, 32, 16, piv_config=cfg, device="cpu")(fa, fb)
+    for g, w in zip(got[:2], want[:2]):
+        assert np.sqrt(np.mean((g - w) ** 2)) <= 1e-3
+    assert np.mean(got[2] != want[2]) <= 0.02
+
+
+@pytest.mark.parametrize("guided", [False, True])
+def test_ptv_on_the_card(card, guided):
+    from torchpiv_tpu_torch.models import PTV
+
+    fa, fb = particle_pair(MODEL_SHAPE, (3.3, -2.1), density=0.01, seed=24)
+    cfg = (PIVConfig(frame_shape=MODEL_SHAPE, wind_size=64, overlap=32, multipass=2)
+           if guided else None)
+    mask = np.zeros(MODEL_SHAPE, bool)
+    mask[:, :64] = True
+    for m in (None, mask):
+        got = PTV(MODEL_SHAPE, piv_config=cfg, max_particles=2048, frame_mask=m,
+                  device=card)(fa, fb)
+        want = PTV(MODEL_SHAPE, piv_config=cfg, max_particles=2048, frame_mask=m,
+                   device="cpu")(fa, fb)
+        assert (got.n_a, got.n_b) == (want.n_a, want.n_b)
+        g = {(round(float(x), 3), round(float(y), 3)): u for x, y, u in zip(got.x, got.y, got.u)}
+        w = {(round(float(x), 3), round(float(y), 3)): u for x, y, u in zip(want.x, want.y, want.u)}
+        common = set(g) & set(w)
+        assert len(common) >= 0.99 * max(len(g), len(w)) > 50
+        assert max(abs(g[k] - w[k]) for k in common) <= 1e-4
+        if m is not None:
+            assert (got.x >= 63.5).all()
+
+
+def test_quality_maps_on_the_card(card):
+    from torchpiv_tpu_torch.stats import quality
+
+    fa, fb = particle_pair(MODEL_SHAPE, (3.3, -2.1), seed=25)
+    for name in ("snr_map", "peak_width_map", "uncertainty_map"):
+        got = getattr(quality, name)(fa, fb, 64, 32, device=card)
+        want = getattr(quality, name)(fa, fb, 64, 32, device="cpu")
+        for g, w in zip(*(x if isinstance(x, tuple) else (x,) for x in (got, want))):
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+            fin = np.isfinite(w)
+            assert (np.abs(g[fin] - w[fin]) <= 1e-4 * np.abs(w[fin])).all()

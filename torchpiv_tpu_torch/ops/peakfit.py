@@ -40,6 +40,44 @@ EPS = 1e-7
 WARP_FIT_MAX = 128  # csrc/peakfit.cu: a warp a map up to this side
 
 
+def _offset_excluded(dd: torch.Tensor, k: int, w: int) -> torch.Tensor:
+    """Flat offset ``dd`` from the first peak of a map with ``k`` columns
+    lies in its ``(2w+1)**2`` neighbourhood iff it decomposes as ``i +
+    k*j`` with ``|i|, |j| <= w``, ``j`` the offset over ``k`` rounded half
+    to even in float32, as ``rintf`` (for a power-of-two ``k`` the division
+    equals the CUDA kernels' multiply by ``1/k``)."""
+    j = torch.round(dd.to(torch.float32) / k).to(dd.dtype)
+    return (j.abs() <= w) & ((dd - k * j).abs() <= w)
+
+
+def _end_flags(m: torch.Tensor, k: int, kd: int, w: int):
+    """Whether the neighbourhood of peak ``m`` runs off the start or the
+    end of the ``kd`` samples: the reference's clamp then excludes flat
+    index 0 or ``kd - 1``."""
+    return (m - (w + k * w)) < 0, (m + (w + k * w)) > kd - 1
+
+
+def exclusion_mask(m: torch.Tensor, k: int, kd: int, w: int) -> torch.Tensor:
+    """The reference's second-peak exclusion as a bool ``[n, kd]`` mask over
+    every sample of the maps whose first peaks are at flat indices ``m``
+    (``[n]``), in int32 offsets."""
+    m = m.to(torch.int32)
+    pos = torch.arange(kd, dtype=torch.int32, device=m.device)
+    excl = _offset_excluded(pos[None, :] - m[:, None], k, w)
+    lo, hi = _end_flags(m, k, kd, w)
+    excl[:, 0] |= lo
+    excl[:, kd - 1] |= hi
+    return excl
+
+
+def excluded(p: torch.Tensor, m: torch.Tensor, k: int, kd: int,
+             w: int) -> torch.Tensor:
+    """``exclusion_mask`` at flat positions ``p`` (``[n, ...]``) only."""
+    m = m.reshape(m.shape[0], *([1] * (p.dim() - 1)))
+    lo, hi = _end_flags(m, k, kd, w)
+    return _offset_excluded(p - m, k, w) | ((p == 0) & lo) | ((p == kd - 1) & hi)
+
+
 def correlation_to_displacement(
     corr: torch.Tensor,
     validate: bool = True,
@@ -135,17 +173,7 @@ def correlation_to_displacement(
     if not validate:
         return u, v, None
 
-    w = validation_window
-    # flat position p is excluded iff off = p - m decomposes as i + k*j with
-    # |i|, |j| <= w: j = round(off / k) in range and |off - k*j| <= w
-    pos = torch.arange(kd, dtype=torch.int32, device=corr.device)
-    off = pos[None, :] - m.to(torch.int32)[:, None]
-    j = torch.round(off.to(fdt) / k).to(torch.int32)
-    excl = (j.abs() <= w) & ((off - k * j).abs() <= w)
-    # offsets that fall off the ends clamp onto flat index 0 / kd-1
-    excl[:, 0] |= (m - (w + k * w)) < 0
-    excl[:, kd - 1] |= (m + (w + k * w)) > kd - 1
-    masked = flat.masked_fill(excl, -torch.inf)
+    masked = flat.masked_fill(exclusion_mask(m, k, kd, validation_window), -torch.inf)
     c2 = torch.clamp(masked.amax(dim=-1) + shift, min=0.0)
     invalid = (cm / c2) < val_ratio
     degenerate = (left >= kd - 1) & (right <= 0) & (top >= kd - 1) & (bot <= 0)
@@ -274,22 +302,9 @@ def warp_fit_steps(
     row = torch.div(m, k, rounding_mode="floor")
     band_lo = (row - vw - 1).clamp(min=0) * k
     band_hi = (row + vw + 2).clamp(max=d) * k - 1
-    lo = (m - (vw + k * vw)) < 0
-    hi = (m + (vw + k * vw)) > kd - 1
-    inv_k = torch.tensor(1.0, dtype=torch.float32) / k
-
-    def excluded(p):  # p [n, ...] flat indices, m [n]
-        dd = p - m.reshape(n, *([1] * (p.dim() - 1)))
-        q = dd.to(torch.float32)
-        q = q * inv_k if k & (k - 1) == 0 else q / float(k)
-        j = torch.round(q).to(torch.int64)  # half to even, as rintf
-        e = (j.abs() <= vw) & ((dd - k * j).abs() <= vw)
-        lo_, hi_ = (t.reshape(n, *([1] * (p.dim() - 1))) for t in (lo, hi))
-        return e | ((p == 0) & lo_) | ((p == kd - 1) & hi_)
-
     every = torch.arange(kd).expand(n, kd)
     outside = (every < band_lo[:, None]) | (every > band_hi[:, None])
-    if bool((excluded(every) & outside)[~nan].any()):
+    if bool((excluded(every, m, k, kd, vw) & outside)[~nan].any()):
         raise RuntimeError("warp_fit_steps: an excluded sample lies outside the band")
 
     c2 = torch.full((n, 32), -torch.inf)
@@ -301,7 +316,7 @@ def warp_fit_steps(
             c2 = torch.where(read[:, None], c2, torch.fmax(c2, cmax[:, j]))
         for s in range(j * ch, (j + 1) * ch):
             misses = (32 * s + 31 < band_lo) | (32 * s > band_hi)
-            keep = misses[:, None] | ~excluded(pos[s].expand(n, 32))
+            keep = misses[:, None] | ~excluded(pos[s].expand(n, 32), m, k, kd, vw)
             c2 = torch.where(read[:, None] & keep, torch.fmax(c2, val[:, s]), c2)
     (c2,) = _xor_reduce([c2], lambda a, b: [torch.fmax(a[0], b[0])])
     c2 = torch.clamp(shifted(c2[:, :1])[:, 0], min=0.0)  # max.NaN: NaN kept
