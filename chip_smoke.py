@@ -113,7 +113,20 @@ Phases, each failing loudly:
    maps (median peak width against the 1.50 px the particles imply) and
    the SAD matchers timed at the pass-1 shape; then each model and map on
    one 1024x1024 pair on the card against the CPU.  Every reading carries
-   the card's name and power limit.
+   the card's name and power limit;
+12. the command line ``tpiv-torch`` at the same full width
+   (``phase_cli``): ``run`` over the 8 uniform pairs in this process (the
+   launch counts set to 0 just before and read just after: rows 1-3 only
+   through the CLI, each per-pair text table equal to phase 4's field at
+   the saved precision), the same ``run`` as ``python -m
+   torchpiv_tpu_torch.cli`` in a fresh interpreter (its wall seconds: the
+   cold start), ``run --multipass-mode DEF`` over the sheared pairs (row
+   3, the shear gate) and ``run --cws-interp bicubic`` over one batch of
+   them (row 2), ``warmup 2048x2048 --multipass 2``, ``doctor --cache``
+   (every check passes; its first fresh process builds ``fastio`` and
+   ``shift_windows.cu``, the second builds nothing), ``qc`` over 2 pairs,
+   ``ensemble`` over the 8 (the uniform displacement) and ``bench`` cut to
+   ``BENCH_PAIRS=16 BENCH_REPEATS=2`` (its JSON line printed, no claim).
 
 Phase 3 also runs ``tools/shift_anatomy_cuda.py``'s six modes of the
 window-shift kernel at pass 2 (``full``, ``noshuffle`` and ``rowbyrow``
@@ -2771,6 +2784,165 @@ def phase_models(uniform: str, kernels, smi: str) -> None:
     log(f"models phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---- phase 12: the command line ----------------------------------------------
+
+def cli_call(argv) -> tuple:
+    """``tpiv-torch`` in this process: ``(exit code, standard output,
+    seconds)``; the output is printed too."""
+    import contextlib
+    import io
+
+    from torchpiv_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    log(out.rstrip())
+    return rc, out, seconds
+
+
+def cli_run(folder: str, kernels, *extra) -> tuple:
+    """``tpiv-torch run`` over ``folder`` at the main path's width on the
+    card, every pair's text table saved; returns the tables, the launch
+    counts (set to 0 just before, read just after) and the seconds."""
+    from torchpiv_tpu_torch.utils.persistence import load_table, saved_series_key
+
+    save = tempfile.mkdtemp(prefix="cli_run_", dir=os.path.dirname(folder))
+    zero_counts(kernels)
+    rc, _, seconds = cli_call(["run", folder, "--multipass", "2", "--device", "cuda",
+                               "--batch-size", str(BATCH), "--save", "Save all text",
+                               "--save-dir", save, *extra])
+    launches = read_counts(kernels)
+    check(rc == 0, f"tpiv-torch run {list(extra)} exited {rc}")
+    files = sorted((f for f in os.listdir(save) if "_pair" in f), key=saved_series_key)
+    return [load_table(os.path.join(save, f)) for f in files], launches, seconds
+
+
+def check_shear_tables(tables, label: str) -> float:
+    """The sheared pairs' tables: u within 0.1 px of 1 + 0.004 y (the rows
+    are flipped to y-up, the coordinates are not), mean v under 0.05 px."""
+    worst = 0.0
+    for t in tables:
+        want = SHEAR[0] + SHEAR[1] * t["y[mm]"][2:-2, 2:-2]
+        mae = float(np.abs(np.flip(t["Vx[m/s]"], axis=0)[2:-2, 2:-2] / UNIT - want).mean())
+        mv = float(t["Vy[m/s]"][2:-2, 2:-2].mean() / UNIT)
+        check(mae < 0.1 and abs(mv) < 0.05, f"{label}: shear error {mae} px, mean v {mv}")
+        worst = max(worst, mae)
+    return worst
+
+
+def phase_cli(uniform: str, shear: str, tmp: str, kernels, cws_fields, smi: str) -> dict:
+    """Phase 12: ``tpiv-torch`` at the main path's full width on the card:
+    ``run`` in this process (its per-pair tables equal to phase 4's fields
+    at the saved precision) and in a fresh interpreter (the cold start),
+    ``run`` with DEF and with bicubic CWS, ``warmup``, ``doctor --cache``,
+    ``qc``, ``ensemble`` and a cut ``bench``.  Returns the CLI's launch
+    counts of rows 1-3 and the readings."""
+    os.environ["TORCHPIV_TPU_CONFIG_DIR"] = os.path.join(tmp, "cli_settings")
+    t_phase = time.perf_counter()
+    readings = {}
+    tables, launches, readings["run_s"] = cli_run(uniform, kernels)
+    check(launches == only(launches, shift_windows=2 * N_PAIRS // BATCH),
+          f"tpiv-torch run launches {launches}")
+    check(len(tables) == N_PAIRS, f"tpiv-torch run saved {len(tables)} tables")
+    worst = 0.0
+    for t, field in zip(tables, cws_fields):
+        for key, want in zip(("x[mm]", "y[mm]", "Vx[m/s]", "Vy[m/s]"), field):
+            worst = max(worst, float(np.abs(t[key] - want).max()))
+    check(worst < 6e-7, f"tpiv-torch run: tables differ from phase 4's fields by {worst}")
+    cli_launches = {"shift_windows": launches["shift_windows"]}
+    log(f"tpiv-torch run ({smi}): {N_PAIRS} pairs in {readings['run_s']:.3f} s in this "
+        f"process, per-pair tables within {worst:.1e} of phase 4's fields, "
+        f"launches {launches}")
+
+    # the cold start: a fresh interpreter, import and kernel loading included
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "torchpiv_tpu_torch.cli", "run", uniform,
+                        "--multipass", "2", "--device", "cuda", "--save", "Dont save"],
+                       env=env, capture_output=True, text=True, timeout=600)
+    readings["fresh_run_s"] = time.perf_counter() - t0
+    check(r.returncode == 0, f"python -m torchpiv_tpu_torch.cli run exited "
+                             f"{r.returncode}: {r.stderr[-2000:]}")
+    log(f"python -m torchpiv_tpu_torch.cli run ({smi}): exit 0 in "
+        f"{readings['fresh_run_s']:.3f} s of wall time, a fresh interpreter with "
+        f"import and kernel loading")
+
+    tables, launches, readings["def_s"] = cli_run(shear, kernels, "--multipass-mode", "DEF")
+    check(launches == only(launches, def_windows=2 * N_SHEAR_PAIRS // BATCH),
+          f"tpiv-torch run DEF launches {launches}")
+    mae = check_shear_tables(tables, "tpiv-torch run DEF")
+    cli_launches["def_windows"] = launches["def_windows"]
+    log(f"tpiv-torch run --multipass-mode DEF ({smi}): {len(tables)} sheared pairs in "
+        f"{readings['def_s']:.3f} s, worst mean |u - shear| {mae:.4f} px, "
+        f"launches {launches}")
+    one_batch = os.path.join(tmp, "cli_shear_batch")
+    os.makedirs(one_batch)
+    for name in sorted(os.listdir(shear))[:2 * BATCH]:
+        os.link(os.path.join(shear, name), os.path.join(one_batch, name))
+    tables, launches, readings["bicubic_s"] = cli_run(one_batch, kernels,
+                                                      "--cws-interp", "bicubic")
+    check(launches == only(launches, shift_windows_bicubic=2),
+          f"tpiv-torch run bicubic launches {launches}")
+    mae = check_shear_tables(tables, "tpiv-torch run bicubic")
+    cli_launches["shift_windows_bicubic"] = launches["shift_windows_bicubic"]
+    log(f"tpiv-torch run --cws-interp bicubic ({smi}): one batch of {len(tables)} in "
+        f"{readings['bicubic_s']:.3f} s, worst mean |u - shear| {mae:.4f} px, "
+        f"launches {launches}")
+
+    rc, _, readings["warmup_s"] = cli_call(["warmup", "2048x2048", "--multipass", "2"])
+    check(rc == 0, f"tpiv-torch warmup exited {rc}")
+    log(f"tpiv-torch warmup 2048x2048 --multipass 2 ({smi}): {readings['warmup_s']:.3f} s")
+
+    rc, out, readings["doctor_s"] = cli_call(["doctor", "--cache"])
+    check(rc == 0 and "8/8 checks passed" in out, f"tpiv-torch doctor exited {rc}")
+    (trip,) = [ln for ln in out.splitlines() if "cache round-trip" in ln]
+    check("libfastio-" in trip and "libshift_windows-" in trip
+          and "second: loaded from disk (wrote 0)" in trip,
+          f"doctor's build-cache round trip: {trip}")
+    log(f"tpiv-torch doctor --cache ({smi}): 8/8 checks in {readings['doctor_s']:.3f} s")
+
+    rc, _, readings["qc_s"] = cli_call(["qc", uniform, "--pairs", "2"])
+    check(rc == 0, f"tpiv-torch qc exited {rc}")
+    ens_out = os.path.join(tmp, "cli_ensemble")
+    rc, _, readings["ensemble_s"] = cli_call(["ensemble", uniform, "--wind-size", "64",
+                                              "--overlap", "32", "--out", ens_out])
+    check(rc == 0, f"tpiv-torch ensemble exited {rc}")
+    from torchpiv_tpu_torch.utils.persistence import load_table
+
+    field = load_table(os.path.join(ens_out, "ensemble_field.txt"))
+    mu = float(field["Vx[m/s]"][2:-2, 2:-2].mean() / UNIT)
+    mv = float(-field["Vy[m/s]"][2:-2, 2:-2].mean() / UNIT)
+    check(abs(mu - DISPLACEMENT[0]) < 0.05 and abs(mv - DISPLACEMENT[1]) < 0.05,
+          f"tpiv-torch ensemble: mean displacement ({mu}, {mv})")
+    log(f"tpiv-torch qc over 2 pairs ({smi}): {readings['qc_s']:.3f} s; ensemble over "
+        f"{N_PAIRS}: {readings['ensemble_s']:.3f} s, mean displacement "
+        f"({mu:.4f}, {mv:.4f}) px")
+
+    saved = {k: os.environ.get(k) for k in ("BENCH_PAIRS", "BENCH_REPEATS")}
+    os.environ.update(BENCH_PAIRS="16", BENCH_REPEATS="2")
+    try:
+        rc, out, readings["bench_s"] = cli_call(["bench"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    check(rc == 0, f"tpiv-torch bench exited {rc}")
+    bench = json.loads(out.strip().splitlines()[-1])
+    check(bench["metric"] == "4MP_pairs_per_sec" and bench["value"] > 0
+          and bench["device"]["kind"] == torch.cuda.get_device_name(0),
+          f"tpiv-torch bench printed {bench}")
+    log(f"bench (BENCH_PAIRS=16 BENCH_REPEATS=2, no claim): {json.dumps(bench)}")
+    readings["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"cli_launches": cli_launches, "cli_seconds": readings, "card": smi}))
+    return cli_launches
+
+
 def video_stand_in(videos: dict):
     """A stand-in for OpenCV's ``cv2`` module where the card's machine has
     none: ``VideoCapture(path)`` over the decoded ``[H, W]`` uint8 frames
@@ -2913,6 +3085,8 @@ def main() -> int:
         log(f"streaming phase done at {time.perf_counter() - t_start:.1f} s")
         phase_models(uniform, KERNELS, smi)
         log(f"models phase done at {time.perf_counter() - t_start:.1f} s")
+        cli_launches = phase_cli(uniform, shear, tmp, KERNELS, cws_fields, smi)
+        log(f"command-line phase done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the path that runs it
     on_path = {"shift_windows": cws_launches, "shift_windows_bicubic": bicubic_launches,
                "def_windows": def_launches, "peakfit": def_launches,
@@ -2931,6 +3105,8 @@ def main() -> int:
         if row["name"] != ANATOMY_ROW:  # that row counts the tool's own run
             row["launches"] = on_path[row["name"]][row["name"]]
         check(row["launches"] > 0, f"{row['name']} was not launched on its path")
+    for name, n in cli_launches.items():
+        check(n > 0, f"{name} was not launched through tpiv-torch")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

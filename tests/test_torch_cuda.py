@@ -10,7 +10,8 @@ CPU, and EnsemblePIV, MultiDtPIV, FolkiPIV, PTV, the quality maps, the SAD
 matchers, the particle detector and the blur on the card against the CPU
 (the tolerances of their CPU tests against the JAX package; the fused peak
 fit launched once an ensemble field, the shift kernel twice a multi-frame
-snapshot).  Every test skips without a CUDA
+snapshot), and the command line: ``tpiv-torch run`` on the card against
+``--device cpu`` (the parity budget) and ``tpiv-torch doctor --cache``.  Every test skips without a CUDA
 device.  The file imports neither JAX nor the JAX package, so it also runs
 where JAX is not installed:
 
@@ -1429,3 +1430,43 @@ def test_quality_maps_on_the_card(card):
             np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
             fin = np.isfinite(w)
             assert (np.abs(g[fin] - w[fin]) <= 1e-4 * np.abs(w[fin])).all()
+
+
+# ---- the command line on the card -------------------------------------------
+
+def test_cli_run_on_the_card(card, tmp_path, monkeypatch):
+    """``tpiv-torch run --multipass 2`` with no ``--device`` runs on the card
+    (row 1 launched) and its per-pair tables equal ``--device cpu``'s within
+    the parity budget."""
+    from torchpiv_tpu_torch.cli import main
+    from torchpiv_tpu_torch.utils.persistence import load_table
+
+    monkeypatch.setenv("TORCHPIV_TPU_CONFIG_DIR", str(tmp_path / "cfg"))
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    _write_pairs(frames, 4)
+    tables = {}
+    for device in ("auto", "cpu"):
+        shift_windows.launches = 0
+        out = tmp_path / device
+        assert main(["run", str(frames), "--device", device, "--wind-size", "32",
+                     "--overlap", "16", "--multipass", "2", "--save",
+                     "Save all text", "--save-dir", str(out)]) == 0
+        assert (shift_windows.launches > 0) == (device == "auto")
+        tables[device] = [load_table(str(p)) for p in sorted(out.glob("*_pair*.txt"))]
+    fields = {d: [tuple(t[k] for k in ("x[mm]", "y[mm]", "Vx[m/s]", "Vy[m/s]"))
+                  for t in ts] for d, ts in tables.items()}
+    assert len(fields["auto"]) == 4
+    _within_budget(fields["auto"], fields["cpu"])
+
+
+def test_cli_doctor_on_the_card(card, capsys):
+    """Every check of ``tpiv-torch doctor`` passes on the card, the build
+    cache round trip included."""
+    from torchpiv_tpu_torch.cli import main
+
+    rc = main(["doctor", "--bandwidth-mb", "16", "--cache"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "8/8 checks passed" in out and "using cuda:" in out
+    assert "second: loaded from disk (wrote 0)" in out

@@ -1,10 +1,11 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles at first use into a shared library with a
-plain C interface, under ``torchpiv_tpu_torch/_build/``.  The library's file
-name carries a hash of its source, of every shared header (``csrc/*.cuh``)
-and of the flags, so an edited source or header builds anew and an
-unchanged one loads from disk.  Only sources of this package are built;
+plain C interface, in the build directory of ``utils.compile_cache``
+(``torchpiv_tpu_torch/_build/``, or ``TORCHPIV_CACHE_DIR``).  The
+library's file name carries a hash of its source, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source or header builds
+anew and an unchanged one loads from disk.  Only sources of this package are built;
 nothing is fetched.
 """
 from __future__ import annotations
@@ -18,13 +19,21 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
+from ..utils.compile_cache import build_dir
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def __getattr__(name: str):
+    # ``BUILD_DIR``: the directory resolved at the first build, not at import
+    if name == "BUILD_DIR":
+        return build_dir()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _nvcc() -> str:
@@ -47,7 +56,7 @@ def _target(name: str) -> Path:
         h.update(header.name.encode())
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -56,7 +65,7 @@ def _start(name: str):
     so = _target(name)
     if so.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -2,10 +2,10 @@
 ``fastio.cpp``: the port's copy of ``torchpiv_tpu/native/loader.py``.
 
 ``fastio.cpp`` is compiled with ``g++`` at first use into the port's
-build directory ``torchpiv_tpu_torch/_build/`` (the one the CUDA kernels
-use), under a name that carries a hash of the source, the flags, the
-compiler's version, the machine and the C library, never beside the
-source.  It reads and decodes whole batches of 8-bit palette BMP,
+build directory, the one the CUDA kernels use (``utils.compile_cache``:
+``torchpiv_tpu_torch/_build/`` or ``TORCHPIV_CACHE_DIR``), under a name
+that carries a hash of the source, the flags, the compiler's version, the
+machine and the C library, never beside the source.  It reads and decodes whole batches of 8-bit palette BMP,
 uncompressed grayscale TIFF (8 or 16 bits, either byte order) and PGM P5
 (8 or 16 bits) on C++ threads, with the interpreter lock released, into a
 caller's buffer if one is given.  Where no compiler exists the library is
@@ -27,10 +27,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.compile_cache import build_dir
+
 log = logging.getLogger("torchpiv_tpu_torch")
 
 SOURCE = Path(__file__).resolve().parent / "fastio.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 FLAGS = ("-O3", "-shared", "-fPIC")
 
 _lock = threading.Lock()
@@ -47,14 +48,14 @@ def _target() -> Path:
     for part in (" ".join(FLAGS), version.strip(), platform.machine(),
                  " ".join(platform.libc_ver())):
         h.update(part.encode())
-    return BUILD_DIR / f"libfastio-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libfastio-{h.hexdigest()[:16]}.so"
 
 
 def _build() -> Path:
     so = _target()
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        so.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
         os.close(fd)
         try:
             subprocess.run(["g++", *FLAGS, "-o", tmp, str(SOURCE), "-lpthread"],
