@@ -126,7 +126,26 @@ Phases, each failing loudly:
    (every check passes; its first fresh process builds ``fastio`` and
    ``shift_windows.cu``, the second builds nothing), ``qc`` over 2 pairs,
    ``ensemble`` over the 8 (the uniform displacement) and ``bench`` cut to
-   ``BENCH_PAIRS=16 BENCH_REPEATS=2`` (its JSON line printed, no claim).
+   ``BENCH_PAIRS=16 BENCH_REPEATS=2`` (its JSON line printed, no claim);
+13. the JAX engine's XLA resampling paths at the same full width
+   (``phase_xla_paths``): (a) the 8 uniform pairs (the sheared ones for
+   DEF) through ``OfflinePIV(..., engine_options={"use_pallas": "off"})``
+   with 2-pass CWS, DWS, DEF, CWS + bicubic, ``fused="split"`` and
+   ``peakfit="pallas"`` (displacement, valid share, exact launch counts:
+   no resampling kernel, row 5 or row 4 once a pass; the RMS against
+   ``"auto"`` on the first batch, the device ms and peak memory a batch
+   beside phase 7's kernel paths, the card against the CPU engine);
+   (b) windows beyond the kernels' limits at ``"auto"``: DEF w256/o128 on
+   the sheared pairs and bicubic w256/o128 (their kernels never launch),
+   w512/o256 3-pass (row 1 on pass 3 only), and the limit cases bicubic
+   w250/o124 and DEF w248/o124 (rows 2 and 3 launch); (c) the
+   camera-degraded campaign: the moderate and harsh tiers of
+   ``tools/degraded_campaign.py`` (6 pairs each, ``camera_degraded_pair``)
+   through ``OfflinePIV`` with SCC, RPC and the second-peak fallback at
+   ``"off"`` and SCC at ``"auto"`` (pairs yielded, bad %, RMS of the good
+   vectors and of all; moderate SCC yields all pairs with bad < 1% and
+   RMS(good) < 0.3 px, harsh RPC and fallback yield more pairs than harsh
+   SCC), and one harsh pair on the card against the CPU engine.
 
 Phase 3 also runs ``tools/shift_anatomy_cuda.py``'s six modes of the
 window-shift kernel at pass 2 (``full``, ``noshuffle`` and ``rowbyrow``
@@ -153,6 +172,7 @@ multi-device speed.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -1238,14 +1258,22 @@ def only(launches: dict, **counts) -> dict:
     return {**dict.fromkeys(launches, 0), **counts}
 
 
-def check_displacement(fields, label: str) -> None:
+def check_displacement(fields, label: str, tol: float = 0.05) -> None:
     for _, _, u, v in fields:
         mu = u[2:-2, 2:-2].mean() / UNIT
         mv = -v[2:-2, 2:-2].mean() / UNIT  # the y axis is flipped
-        check(abs(mu - DISPLACEMENT[0]) < 0.05, f"{label}: mean u {mu}")
-        check(abs(mv - DISPLACEMENT[1]) < 0.05, f"{label}: mean v {mv}")
+        check(abs(mu - DISPLACEMENT[0]) < tol, f"{label}: mean u {mu}")
+        check(abs(mv - DISPLACEMENT[1]) < tol, f"{label}: mean v {mv}")
     log(f"{label}: interior mean displacement of the last pair "
         f"({mu:.4f}, {mv:.4f}) px, expected {DISPLACEMENT}")
+
+
+def shear_error(fields, piv) -> float:
+    """The worst pair's interior mean |u - shear| in px."""
+    _, y = piv.engine.final_coordinates
+    want = SHEAR[0] + SHEAR[1] * y[2:-2, 2:-2]
+    return max(float(np.abs(np.flip(u, axis=0)[2:-2, 2:-2] / UNIT - want).mean())
+               for _, _, u, _ in fields)
 
 
 def phase_fused_paths(uniform: str, shear: str, kernels) -> dict:
@@ -1287,10 +1315,7 @@ def phase_fused_paths(uniform: str, shear: str, kernels) -> dict:
     check_fields(fields, piv, BATCH)
     check(launches == only(launches, def_windows=2, correlate_peakfit=2),
           f"DEF fused=split launches {launches}")
-    _, y = piv.engine.final_coordinates
-    mae = max(np.abs(np.flip(u, axis=0)[2:-2, 2:-2] / UNIT
-                     - (SHEAR[0] + SHEAR[1] * y[2:-2, 2:-2])).mean()
-              for _, _, u, _ in fields)
+    mae = shear_error(fields, piv)
     log(f"DEF fused=split: one batch, launches {launches}, "
         f"worst mean |u - shear| {mae:.4f} px")
     check(mae < 0.1, f"DEF fused=split shear error {mae}")
@@ -1719,10 +1744,7 @@ def phase_bicubic_paths(folder: str, kernels) -> dict:
         check_fields(fields, piv, BATCH)
         check(launches == only(launches, **{expect: 2}),
               f"{mode} + bicubic launches {launches}")
-        _, y = piv.engine.final_coordinates
-        mae = max(np.abs(np.flip(u, axis=0)[2:-2, 2:-2] / UNIT
-                         - (SHEAR[0] + SHEAR[1] * y[2:-2, 2:-2])).mean()
-                  for _, _, u, _ in fields)
+        mae = shear_error(fields, piv)
         log(f"{mode} + bicubic: one batch, launches {launches}, "
             f"worst mean |u - shear| {mae:.4f} px")
         check(mae < 0.1, f"{mode} + bicubic shear error {mae}")
@@ -2979,6 +3001,213 @@ def video_stand_in(videos: dict):
     return stand_in
 
 
+# ---- phase 13: the XLA-semantics resampling paths ----------------------------
+
+# (a): the headline path with use_pallas="off"; the launches a batch of each
+# run (every other count 0): rows 1-3 none, row 5 once a pass under split,
+# row 4 once a pass under peakfit="pallas"
+OFF_PATHS = (("CWS", "uniform", {}, {}),
+             ("DWS", "uniform", {"multipass_mode": "DWS"}, {}),
+             ("DEF", "shear", {"multipass_mode": "DEF"}, {}),
+             ("CWS bicubic", "uniform", {"cws_interp": "bicubic"}, {}),
+             ("CWS fused=split", "uniform", {"fused": "split"}, {"correlate_peakfit": 2}),
+             ("CWS peakfit=pallas", "uniform", {"peakfit": "pallas"}, {"peakfit": 2}))
+# (b): windows beyond the kernels' limits at "auto", and the limit cases:
+# (label, folder, OfflinePIV keywords, launches a batch, pairs: None = all)
+LIMIT_PATHS = (
+    ("DEF w256/o128", "shear",
+     dict(wind_size=256, overlap=128, multipass_mode="DEF"), {}, None),
+    ("CWS bicubic w256/o128", "uniform",
+     dict(wind_size=256, overlap=128, engine_options={"cws_interp": "bicubic"}),
+     {}, None),
+    ("CWS w512/o256 x3", "uniform", dict(wind_size=512, overlap=256, multipass=3),
+     {"shift_windows": 2}, None),
+    ("CWS bicubic w250/o124 (125 px)", "uniform",
+     dict(wind_size=250, overlap=124, engine_options={"cws_interp": "bicubic"}),
+     {"shift_windows_bicubic": 2}, BATCH),
+    ("DEF w248/o124 (129 px tile)", "shear",
+     dict(wind_size=248, overlap=124, multipass_mode="DEF"), {"def_windows": 2}, BATCH))
+# (c): the tiers of tools/degraded_campaign.py:37-62 (passed here: the tool
+# imports the JAX package), its true flow and its run settings (:130-142)
+TIERS = {
+    "moderate": dict(density=0.012, dropout=0.15, intensity_flicker=0.25,
+                     vignette=0.55, glare_amplitude=45.0, read_noise=4.0,
+                     shot_noise=True, hot_pixel_rate=3e-5),
+    "harsh": dict(density=0.005, dropout=0.25, intensity_flicker=0.4, vignette=0.7,
+                  glare_amplitude=90.0, read_noise=6.0, shot_noise=True,
+                  hot_pixel_rate=1e-4)}
+N_DEGRADED = 6  # pairs a tier
+CAMPAIGN_RUN = dict(wind_size=64, overlap=32, multipass=2, multipass_mode="CWS",
+                    dt=1000.0, scale=1.0, batch_size=BATCH)  # fields in px
+CAMPAIGN_MODES = (("SCC", "off", {}), ("RPC", "off", {"correlation": "rpc"}),
+                  ("fallback", "off", {"second_peak_fallback": True}),
+                  ("SCC", "auto", {}))
+
+
+def field_difference(engine_a, engine_b, a, b) -> tuple:
+    """Mask mismatch and RMS px on jointly valid vectors of two engines on
+    the same batch."""
+    ua, va, ia = (t.cpu().numpy() for t in engine_a(a, b))
+    ub, vb, ib = (t.cpu().numpy() for t in engine_b(a, b))
+    both = ~(ia | ib)
+    d = np.concatenate([(ua - ub)[both], (va - vb)[both]]).astype(np.float64)
+    return float((ia != ib).mean()), float(np.sqrt(np.mean(d ** 2)))
+
+
+def write_degraded(folder: str, tier: str) -> None:
+    """The campaign's pairs of ``tier`` at the main path's frame, in threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchpiv_tpu_torch.io.decode import imwrite_gray
+    from torchpiv_tpu_torch.utils.synthetic import camera_degraded_pair
+
+    os.makedirs(folder)
+
+    def one(i):
+        fa, fb = camera_degraded_pair(FRAME, displacement=DISPLACEMENT,
+                                      seed=100 + i, **TIERS[tier])
+        imwrite_gray(os.path.join(folder, f"d{i:03d}_a.bmp"), fa)
+        imwrite_gray(os.path.join(folder, f"d{i:03d}_b.bmp"), fb)
+
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(one, range(N_DEGRADED)))
+
+
+def campaign_metrics(fields) -> dict:
+    """``tools/degraded_campaign.py``'s ``field_metrics`` (:107-128): error
+    against the true flow (v flipped by the pipeline), ``bad`` = more than 1
+    px off, RMS of the rest and of all."""
+    if not fields:
+        return {"pairs_yielded": 0, "bad_pct": None, "rms_good_px": None,
+                "rms_all_px": None}
+    e = np.concatenate([np.sqrt((u.astype(np.float64) - DISPLACEMENT[0]) ** 2
+                                + (v.astype(np.float64) + DISPLACEMENT[1]) ** 2).ravel()
+                        for _, _, u, v in fields])
+    bad = e > 1.0
+    return {"pairs_yielded": len(fields), "bad_pct": 100.0 * float(bad.mean()),
+            "rms_good_px": float(np.sqrt(np.mean(e[~bad] ** 2))) if (~bad).any() else None,
+            "rms_all_px": float(np.sqrt(np.mean(e ** 2)))}
+
+
+def phase_xla_off(folders: dict, kernels, kernel_profiles: dict, smi: str) -> None:
+    """Phase 13 (a): the headline path with ``use_pallas="off"``."""
+    from torchpiv_tpu_torch import MultipassPIV, OfflinePIV, PIVConfig
+    from torchpiv_tpu_torch.io.dataset import PIVDataset
+
+    n_batches = -(-N_PAIRS // BATCH)
+    for label, which, knobs, per_batch in OFF_PATHS:
+        folder = folders[which]
+        mode = knobs.get("multipass_mode", "CWS")
+        options = {k: v for k, v in knobs.items() if k != "multipass_mode"}
+        piv = OfflinePIV(folder, wind_size=64, overlap=32, multipass=2,
+                         multipass_mode=mode, batch_size=BATCH,
+                         engine_options={"use_pallas": "off", **options})
+        check(piv.engine.device.type == "cuda" and piv.engine.config.use_pallas == "off",
+              f"{label} off: the knob did not reach an engine on the card")
+        valid = warm_up(piv, folder)
+        check(valid > 0.95, f"{label} off: valid share {valid}")
+        fields, launches, pairs_per_s = drive(piv, kernels)
+        check_fields(fields, piv, N_PAIRS)
+        want = {k: n * n_batches for k, n in per_batch.items()}
+        check(launches == only(launches, **want), f"{label} off: launches {launches}")
+        if which == "shear":
+            mae = shear_error(fields, piv)
+            log(f"{label} off: worst mean |u - shear| {mae:.4f} px")
+            check(mae < 0.1, f"{label} off: shear error {mae}")
+        else:
+            # DWS refines a whole-pixel offset: its fit of the 0.7 px residual
+            # locks towards the integer, so its mean u reads about 0.07 px high
+            check_displacement(fields, f"{label} off", 0.1 if mode == "DWS" else 0.05)
+        _, a, b = PIVDataset(folder, ".bmp").read_batch(list(range(BATCH)))
+        a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        auto = MultipassPIV(dataclasses.replace(piv.engine.config, use_pallas="auto"))
+        flips, rms = field_difference(piv.engine, auto, a, b)
+        del a, b, auto
+        log(f"{label} off: {len(fields)} pairs at {pairs_per_s:.3f} pairs/s, valid "
+            f"share {valid:.4f}, launches {launches}; against use_pallas=auto on the "
+            f"first batch: mask mismatch {flips:.5f}, RMS {rms:.3e} px")
+        prof = phase_profile(folder, f"{label} use_pallas=off", use_pallas="off", **knobs)
+        kp = kernel_profiles.get(label)
+        beside = ("" if kp is None else
+                  f"; the kernel path (phase 7): {kp['device_ms']:.3f} ms of device "
+                  f"time, peak {kp['peak_bytes'] / 2**20:.1f} MiB")
+        log(f"{label} use_pallas=off: {prof['device_ms']:.3f} ms of device time a "
+            f"batch of {BATCH}, engine {prof['ms_batch']:.3f} ms, peak device memory "
+            f"{prof['peak_bytes'] / 2**20:.1f} MiB{beside} ({smi})")
+        phase_reference(folder, f"{label} use_pallas=off", use_pallas="off", **knobs)
+        torch.cuda.empty_cache()
+
+
+def phase_beyond_limits(folders: dict, kernels) -> None:
+    """Phase 13 (b): windows beyond the kernels' limits at ``"auto"`` take
+    the XLA paths (their kernels never launch), the limit cases launch
+    theirs."""
+    from torchpiv_tpu_torch import OfflinePIV
+
+    for label, which, kw, per_batch, n_pairs in LIMIT_PATHS:
+        kw = {"multipass": 2, **kw}
+        piv = OfflinePIV(folders[which], batch_size=BATCH, max_pairs=n_pairs, **kw)
+        n_pairs = n_pairs or (N_SHEAR_PAIRS if which == "shear" else N_PAIRS)
+        fields, launches, pairs_per_s = drive(piv, kernels)
+        check_fields(fields, piv, n_pairs)
+        n_batches = -(-n_pairs // BATCH)
+        want = {k: n * n_batches for k, n in per_batch.items()}
+        check(launches == only(launches, **want), f"{label}: launches {launches}")
+        if which == "shear":
+            mae = shear_error(fields, piv)
+            log(f"{label}: worst mean |u - shear| {mae:.4f} px")
+            check(mae < 0.1, f"{label}: shear error {mae}")
+        else:
+            check_displacement(fields, label)
+        log(f"{label}: passes {piv.engine.schedule}, {len(fields)} pairs at "
+            f"{pairs_per_s:.3f} pairs/s, launches {launches}")
+        torch.cuda.empty_cache()
+
+
+def phase_degraded(tmp: str, kernels, smi: str) -> None:
+    """Phase 13 (c): the camera-degraded campaign at the main path's frame."""
+    from torchpiv_tpu_torch import OfflinePIV
+
+    t0 = time.perf_counter()
+    tiers = {}
+    for tier in TIERS:
+        tiers[tier] = os.path.join(tmp, f"degraded_{tier}")
+        write_degraded(tiers[tier], tier)
+    log(f"wrote {N_DEGRADED} pairs a tier of {FRAME} in {time.perf_counter() - t0:.1f} s")
+    table = {}
+    for tier, folder in tiers.items():
+        for mode, pallas, options in CAMPAIGN_MODES:
+            label = f"{tier} {mode} use_pallas={pallas}"
+            piv = OfflinePIV(folder, engine_options={"use_pallas": pallas, **options},
+                             **CAMPAIGN_RUN)
+            fields, launches, _ = drive(piv, kernels)
+            table[label] = campaign_metrics(fields)
+            log(json.dumps({"campaign": label, **table[label], "launches": launches,
+                            "card": smi}))
+    moderate = table["moderate SCC use_pallas=off"]
+    check(moderate["pairs_yielded"] == N_DEGRADED and moderate["bad_pct"] < 1.0
+          and moderate["rms_good_px"] < 0.3, f"moderate SCC: {moderate}")
+    scc = table["harsh SCC use_pallas=off"]["pairs_yielded"]
+    for mode in ("RPC", "fallback"):
+        got = table[f"harsh {mode} use_pallas=off"]["pairs_yielded"]
+        check(got > scc, f"harsh {mode} yields {got} pairs, SCC {scc}")
+    phase_reference(tiers["harsh"], "harsh SCC use_pallas=off", use_pallas="off")
+
+
+def phase_xla_paths(uniform: str, shear: str, tmp: str, kernels, kernel_profiles: dict,
+                    smi: str) -> None:
+    """Phase 13: the JAX engine's XLA resampling paths at the main path's
+    frame on the card."""
+    t0 = time.perf_counter()
+    folders = {"uniform": uniform, "shear": shear}
+    phase_xla_off(folders, kernels, kernel_profiles, smi)
+    log(f"phase 13 (a) done at {time.perf_counter() - t0:.1f} s")
+    phase_beyond_limits(folders, kernels)
+    log(f"phase 13 (b) done at {time.perf_counter() - t0:.1f} s")
+    phase_degraded(tmp, kernels, smi)
+    log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3021,8 +3250,10 @@ def main() -> int:
         log(f"CWS path: engine busy share {cws['ms_pair'] * pairs_per_s / 1e3:.3f} "
             f"(engine ms/pair x pairs/s; the rest is host work the card waits on), "
             f"{cws_spans['busy_share_spans']:.3f} from the spans (device ms over wall)")
+        fused_profiles = {}
         for fused, (_, fused_pairs_per_s, _, spans) in fused_runs.items():
-            prof = phase_profile(uniform, f"CWS fused={fused}", fused=fused)
+            prof = fused_profiles[fused] = phase_profile(uniform, f"CWS fused={fused}",
+                                                         fused=fused)
             check_fused_profile(prof, cws, f"CWS fused={fused}")
             log(f"CWS fused={fused}: engine {prof['ms_batch']:.3f} ms per batch "
                 f"(unfused {cws['ms_batch']:.3f}), peak memory "
@@ -3030,7 +3261,8 @@ def main() -> int:
                 f"{cws['peak_bytes'] / 2**20:.1f}), busy share "
                 f"{prof['ms_pair'] * fused_pairs_per_s / 1e3:.3f}, "
                 f"{spans['busy_share_spans']:.3f} from the spans")
-        xla_ms = phase_profile(shear, "DEF peakfit=xla", multipass_mode="DEF")["ms_pair"]
+        def_xla = phase_profile(shear, "DEF peakfit=xla", multipass_mode="DEF")
+        xla_ms = def_xla["ms_pair"]
         def_prof = phase_profile(shear, "DEF peakfit=pallas", multipass_mode="DEF",
                                  peakfit="pallas")
         def_ms = def_prof["ms_pair"]
@@ -3087,6 +3319,11 @@ def main() -> int:
         log(f"models phase done at {time.perf_counter() - t_start:.1f} s")
         cli_launches = phase_cli(uniform, shear, tmp, KERNELS, cws_fields, smi)
         log(f"command-line phase done at {time.perf_counter() - t_start:.1f} s")
+        # phase 7's kernel paths, beside which phase 13 prints the XLA paths
+        kernel_profiles = {"CWS": cws, "DEF": def_xla, "CWS bicubic": cubic,
+                           "CWS fused=split": fused_profiles["split"]}
+        phase_xla_paths(uniform, shear, tmp, KERNELS, kernel_profiles, smi)
+        log(f"XLA-path phase done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the path that runs it
     on_path = {"shift_windows": cws_launches, "shift_windows_bicubic": bicubic_launches,
                "def_windows": def_launches, "peakfit": def_launches,

@@ -10,9 +10,13 @@ CPU, and EnsemblePIV, MultiDtPIV, FolkiPIV, PTV, the quality maps, the SAD
 matchers, the particle detector and the blur on the card against the CPU
 (the tolerances of their CPU tests against the JAX package; the fused peak
 fit launched once an ensemble field, the shift kernel twice a multi-frame
-snapshot), and the command line: ``tpiv-torch run`` on the card against
-``--device cpu`` (the parity budget) and ``tpiv-torch doctor --cache``.  Every test skips without a CUDA
-device.  The file imports neither JAX nor the JAX package, so it also runs
+snapshot), the command line: ``tpiv-torch run`` on the card against
+``--device cpu`` (the parity budget) and ``tpiv-torch doctor --cache``, and
+the JAX engine's XLA resampling paths: the three shifts and the dense DEF
+path on the card against the CPU (within 1e-4 of a grey level), the
+engine with ``use_pallas="off"`` against the CPU engine (the parity
+budget) and the kernels' launches beyond and at their limits.  Every test
+skips without a CUDA device.  The file imports neither JAX nor the JAX package, so it also runs
 where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -40,8 +44,8 @@ import torch
 from torchpiv_tpu_torch import MultipassPIV, OfflinePIV, PIVConfig
 from torchpiv_tpu_torch.io.decode import imwrite_gray
 from torchpiv_tpu_torch.kernels.corrfit import correlate_peakfit, describe
-from torchpiv_tpu_torch.config import (MAX_BICUBIC_WIND, MAX_DEF_TILE,
-                                       MAX_SHIFT_WIND, def_tile)
+from torchpiv_tpu_torch.kernels.deform import MAX_DEF_TILE, def_tile
+from torchpiv_tpu_torch.kernels.shift import MAX_BICUBIC_WIND, MAX_SHIFT_WIND
 from torchpiv_tpu_torch.kernels.deform import def_windows
 from torchpiv_tpu_torch.kernels.deform import describe as def_describe
 from torchpiv_tpu_torch.kernels.fused_pass import fused_piv_pass
@@ -1470,3 +1474,89 @@ def test_cli_doctor_on_the_card(card, capsys):
     assert rc == 0, out
     assert "8/8 checks passed" in out and "using cuda:" in out
     assert "second: loaded from disk (wrote 0)" in out
+
+
+# ---- the JAX engine's XLA resampling paths ----------------------------------
+
+XLA_FUNCTIONS = [("cws_shift", False), ("cws_shift", True), ("bicubic_cws_shift", False),
+                 ("bicubic_cws_shift", True), ("dws_shift", False),
+                 ("def_windows_xla", False)]
+
+
+@pytest.mark.parametrize("name,per_pixel", XLA_FUNCTIONS)
+def test_xla_paths_on_the_card_match_the_cpu(card, name, per_pixel):
+    """The XLA-semantics torch ops on the card against the same ops on the
+    CPU, within 1e-4 of a grey level: shifts past ``w/2`` and out of the
+    frame, three columns of them integer."""
+    from torchpiv_tpu_torch.ops import shifts
+    from torchpiv_tpu_torch.ops.deform import def_windows_xla
+    from torchpiv_tpu_torch.ops.geometry import per_window_origins
+
+    (H, W), w, o = (200, 264), 32, 16
+    r0, c0 = (torch.from_numpy(t) for t in per_window_origins((H, W), w, o))
+    g = torch.Generator().manual_seed(3)
+    frames = (torch.rand(2, H, W, generator=g) * 255).round()
+    shape = (2, r0.numel(), w, w) if per_pixel else (2, r0.numel())
+    maps = [torch.randn(*shape, generator=g) * 24 for _ in range(2)]
+    maps[0][..., :3] = maps[0][..., :3].round()
+    if name == "def_windows_xla":
+        maps += [torch.rand(*shape, generator=g) * 0.4 - 0.2 for _ in range(4)]
+        fn = def_windows_xla
+    else:
+        fn = getattr(shifts, name)
+    want = fn(frames, r0, c0, w, *maps)
+    got = fn(frames.to(card), r0.to(card), c0.to(card), w, *(m.to(card) for m in maps))
+    assert got.device.type == "cuda" and got.shape == want.shape
+    assert torch.allclose(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kw,launches", [
+    (dict(wind_size=256, overlap=128, multipass_mode="DEF"), {}),
+    (dict(wind_size=256, overlap=128, cws_interp="bicubic"), {}),
+    (dict(wind_size=512, overlap=256, multipass=3), {"shift_windows": 2}),
+    (dict(wind_size=250, overlap=124, cws_interp="bicubic"), {"shift_windows_bicubic": 2}),
+    (dict(wind_size=248, overlap=124, multipass_mode="DEF"), {"def_windows": 2}),
+    (dict(wind_size=64, overlap=32, use_pallas="off"), {}),
+    (dict(wind_size=64, overlap=32, use_pallas="off", fused="split"),
+     {"correlate_peakfit": 2}),
+], ids=["def-256", "bicubic-256", "cws-512-x3", "bicubic-125", "def-tile-129",
+        "off", "off-split"])
+def test_xla_path_launch_counts(card, kw, launches):
+    """Beyond the kernels' limits (and under ``use_pallas="off"``) the
+    resampling kernels never launch; within them each launches once a frame
+    and pass, the limit cases too (a 125 px bicubic window, a 129 px DEF
+    tile)."""
+    from torchpiv_tpu_torch.kernels import KERNELS
+
+    cfg = PIVConfig(**{"frame_shape": (1024, 1024), "multipass": 2, **kw})
+    flow = shear_flow(1.0, 0.004) if cfg.multipass_mode == "DEF" else (3.3, -2.1)
+    fa, fb = (torch.from_numpy(f) for f in particle_pair((1024, 1024), flow, seed=4))
+    engine = MultipassPIV(cfg, device=card)
+    for k in KERNELS:
+        k.launches = 0
+    u, _, inval = engine(fa, fb)
+    torch.cuda.synchronize()
+    counts = {k.__name__: k.launches for k in KERNELS}
+    assert counts == {**dict.fromkeys(counts, 0), **launches}
+    assert (~inval).float().mean() > 0.9
+
+
+@pytest.mark.parametrize("kw", [
+    dict(multipass_mode="CWS"), dict(multipass_mode="DWS"), dict(multipass_mode="DEF"),
+    dict(multipass_mode="CWS", cws_interp="bicubic"),
+    dict(multipass_mode="CWS", fused="split"), dict(multipass_mode="CWS", peakfit="pallas"),
+], ids=lambda kw: "-".join(kw.values()))
+def test_cuda_engine_off_matches_cpu_engine(card, kw):
+    """``use_pallas="off"`` on the card against the CPU engine: the parity
+    budget."""
+    flow = shear_flow(1.0, 0.01) if kw["multipass_mode"] == "DEF" else (3.3, -2.1)
+    fa, fb = (torch.from_numpy(f) for f in particle_pair((512, 512), flow, seed=9))
+    cfg = PIVConfig(frame_shape=(512, 512), wind_size=64, overlap=32, multipass=2,
+                    use_pallas="off", **kw)
+    cu, cv, ci = (t.cpu().numpy() for t in MultipassPIV(cfg, device=card)(fa, fb))
+    pu, pv, pi = (t.numpy() for t in MultipassPIV(cfg, device="cpu")(fa, fb))
+    assert np.mean(ci != pi) < 0.02
+    both = ~(ci | pi)
+    assert both.mean() > 0.5
+    assert np.sqrt(np.mean((cu - pu)[both] ** 2)) < 0.01
+    assert np.sqrt(np.mean((cv - pv)[both] ** 2)) < 0.01

@@ -242,12 +242,29 @@ def test_offline_piv_skip_and_max_pairs(tmp_path):
 @pytest.mark.parametrize("kw", [
     # low-precision windows into the FFT: the JAX package's FFT refuses them
     dict(engine_options={"dtype": "bfloat16", "correlator": "fft"}),
-    dict(engine_options={"cws_interp": "bicubic", "shift_variant": "mxu"}),
+    # the port computes in float types only
+    dict(engine_options={"dtype": "int32"}),
 ])
 def test_offline_piv_rejects_what_is_not_ported(tmp_path, kw):
     _write_pairs(tmp_path, 1, holes=False)
     with pytest.raises(ValueError):
         OfflinePIV(str(tmp_path), device="cpu", multipass=2, **kw)
+
+
+def test_offline_piv_runs_bicubic_with_a_shift_variant_like_jax(tmp_path):
+    """Both pipelines send bicubic CWS with a shift variant to the XLA
+    bicubic shift: the port's fields within the parity budget of the JAX
+    ``OfflinePIV``'s (which pins ``use_pallas="off"`` on the CPU)."""
+    _write_pairs(tmp_path, 2, holes=False)
+    kw = dict(device="cpu", multipass=2,
+              engine_options={"cws_interp": "bicubic", "shift_variant": "mxu"})
+    got = list(OfflinePIV(str(tmp_path), **kw)())
+    want = list(JaxOfflinePIV(str(tmp_path), **kw)())
+    assert len(got) == len(want) == 2
+    for (x, y, u, v), (jx, jy, ju, jv) in zip(got, want):
+        np.testing.assert_array_equal(x, jx)
+        d = np.concatenate([(u - ju).ravel(), (v - jv).ravel()]) / 1000.0
+        assert np.mean(np.abs(d) > 0.01) < 0.02 and np.sqrt(np.mean(d ** 2)) < 0.01
 
 
 def test_offline_piv_default_device_needs_a_card(tmp_path):

@@ -33,8 +33,8 @@ import torch
 
 from torchpiv_tpu.kernels.def_pallas import def_windows_pallas
 from torchpiv_tpu.kernels.shift_pallas import shift_windows_pallas
-from torchpiv_tpu_torch.config import (MAX_BICUBIC_WIND, MAX_DEF_TILE,
-                                       MAX_SHIFT_WIND, def_tile)
+from torchpiv_tpu_torch.kernels.deform import MAX_DEF_TILE, def_tile
+from torchpiv_tpu_torch.kernels.shift import MAX_BICUBIC_WIND, MAX_SHIFT_WIND
 from torchpiv_tpu_torch.kernels import _build
 from torchpiv_tpu_torch.ops.deform import (BLOCK_WINDOWS, block_geometry,
                                            def_block_steps, def_operands,

@@ -5,16 +5,33 @@ field names, defaults, ``pass_schedule()`` and validation, so a JAX config
 converts one to one (``from_dict``).
 
 Knobs whose only effect is a TPU lowering are accepted and do nothing here:
-``use_pallas``, ``pallas_interpret``, ``shift_maps``, ``extract_variant``,
-``complex_mm``, ``correlator`` and ``dft_precision``.  ``shift_variant`` is
-live: it selects the bilinear shift kernel of the CWS and DWS passes
-(``kernels/shift.py``), and a name that is none of the five runs
-``"rolls"``, as in the JAX engine.
+``shift_maps``, ``extract_variant``, ``complex_mm``, ``correlator`` and
+``dft_precision``.  ``shift_variant`` is live: it selects the bilinear shift
+kernel of the CWS and DWS passes (``kernels/shift.py``), and a name that is
+none of the five runs ``"rolls"``, as in the JAX engine.
 The port always correlates in float32, through ``torch.fft`` or inside its
-pass-fusion kernels, and always resamples windows with its CUDA kernels (their plain versions on the CPU):
-the JAX engine's XLA shift and dense-gather DEF paths, which have other
-semantics (per-pixel absolute coordinates, no residual saturation), are not
-ported, so window sizes beyond the kernels' limits raise ``ValueError``.
+pass-fusion kernels.
+
+``use_pallas`` is live and chooses how a refine pass resamples its windows,
+as in the JAX engine (``MultipassPIV._use_pallas``):
+
+* ``"auto"`` (the default) and ``"on"``: the hand-written CUDA kernels
+  (their plain versions on the CPU), the semantics of the JAX engine's
+  Pallas kernels on the TPU, which the card replaces: per-window weights
+  and shifts clamped to ``max_shift``;
+* ``"off"``: the JAX engine's XLA paths (``ops.shifts.cws_shift``,
+  ``bicubic_cws_shift``, ``dws_shift`` and ``ops.deform.def_windows_xla``):
+  per-pixel absolute coordinates, no clamp to ``max_shift``, the
+  reference's flat-index clamped addressing.  ``pallas_interpret=True``
+  keeps the kernels' semantics, as it does in the JAX engine.
+
+Under ``"auto"``/``"on"`` the engine takes the XLA paths where the JAX
+engine does: refine windows beyond the kernels' limits
+(``kernels.shift.shift_pallas_supported``,
+``kernels.deform.def_pallas_supported``) and bicubic CWS with a
+``shift_variant`` other than ``"rolls"``.  ``fused="on"`` runs its kernel
+whatever ``use_pallas`` says.
+
 ``peakfit="pallas"`` selects the fused CUDA peak-fit kernel; ``"xla"`` (the
 default) the chain of torch ops.  ``fused="split"`` runs correlation and
 peak fit of every pass in one CUDA kernel, ``fused="on"`` the whole pass
@@ -39,7 +56,10 @@ kernels do after their cast on entry):
 * the frames that the shift and deformation kernels of a refine pass get
   are rounded to it, and so are the shifts and gradients every resampling
   kernel gets; the whole-pass kernel (``fused="on"``) gets the frame as it
-  is, as in the JAX engine.
+  is, as in the JAX engine;
+* the XLA-semantics resampling computes in that type, coordinates, samples
+  and weights, as the JAX engine's XLA shifts do, and its windows are
+  promoted to float32 where they are correlated.
 
 ``"float32"`` and ``"float64"`` compute in float32: with 64-bit mode off,
 its default, the JAX package computes ``"float64"`` as float32, and the
@@ -55,10 +75,6 @@ What raises ``ValueError`` here and not in the JAX twin:
   unweighted): the JAX package's FFT takes float32 and float64 only and
   raises there when the engine runs, the port when it is configured;
   ``"auto"`` and ``"matmul"`` take the matmul DFT's promotion above;
-* refine-pass windows beyond the resampling kernels' limits;
-* CWS with ``cws_interp="bicubic"``, a ``shift_variant`` other than
-  ``"rolls"`` and a refine pass: the JAX engine sends that combination to
-  its XLA bicubic shift, which the port does not have.
 """
 from __future__ import annotations
 
@@ -66,16 +82,6 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
-
-MAX_SHIFT_WIND = 128  # refine-pass window limit of the bilinear shift kernel
-MAX_BICUBIC_WIND = 125  # ... of the bicubic shift kernel
-MAX_DEF_TILE = 129  # DEF: w + 2*def_margin + (4 bicubic | 1 bilinear) limit
-
-
-def def_tile(wind_size: int, margin: int, interp: str) -> int:
-    """Side of the frame tile one DEF window samples from."""
-    return wind_size + 2 * margin + (4 if interp == "bicubic" else 1)
-
 
 # knob -> predicate on its value that is true when the value is not ported
 # (every knob is ported; ``dtype`` refuses non-float types on its own)
@@ -117,8 +123,8 @@ class PIVConfig:
     validation_window: int = 3
     infill: str = "host"  # "host" | "fused" (on the device) | "none"
     dtype: str = "float32"
-    use_pallas: str = "auto"  # TPU lowering only: no effect
-    pallas_interpret: bool = False  # TPU lowering only: no effect
+    use_pallas: str = "auto"  # "auto" | "on" (kernels) | "off" (XLA semantics)
+    pallas_interpret: bool = False  # True keeps the kernels' semantics
     edge_exact: bool = True  # flat-wrap padding of the shifted frames
     max_shift: Optional[int] = None  # shift clamp, default wind // 2
     shift_variant: str = "rolls"  # "rolls" | "bf16" | "lanephases" | "mxu" | "phases"
@@ -266,28 +272,3 @@ class PIVConfig:
             if unported(value):
                 raise ValueError(
                     f"{knob}={value!r} is not ported to the PyTorch engine yet")
-        bicubic = self.cws_interp == "bicubic"
-        if (bicubic and self.multipass_mode == "CWS" and self.multipass > 1
-                and self.shift_variant != "rolls"):
-            raise ValueError(
-                f"shift_variant={self.shift_variant!r} with cws_interp="
-                f"'bicubic' needs the XLA bicubic shift, which is not ported "
-                f"(the bicubic kernel exists for 'rolls' only)")
-        # refine-pass windows beyond the resampling kernels' limits
-        for p, (w, _) in enumerate(self.pass_schedule()[1:], start=2):
-            if self.multipass_mode == "DEF":
-                T = def_tile(w, self.def_margin, self.cws_interp)
-                if T > MAX_DEF_TILE:
-                    raise ValueError(
-                        f"wind_size: pass {p} DEF window {w} with def_margin="
-                        f"{self.def_margin}, cws_interp={self.cws_interp!r} "
-                        f"samples a {T} px tile > {MAX_DEF_TILE}; it needs "
-                        f"the XLA DEF path, which is not ported")
-                continue
-            limit = (MAX_BICUBIC_WIND
-                     if bicubic and self.multipass_mode == "CWS"
-                     else MAX_SHIFT_WIND)
-            if w > limit:
-                raise ValueError(
-                    f"wind_size: pass {p} window {w} > {limit} px "
-                    f"needs the XLA shift path, which is not ported")

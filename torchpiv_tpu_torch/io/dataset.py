@@ -19,10 +19,15 @@ from ..native import loader as native
 from .decode import imread_gray
 
 
+def atoi(text: str):
+    """A run of digits as its int, any other text as it is."""
+    return int(text) if text.isdigit() else text
+
+
 def natural_keys(text: str):
-    """Human-order sort key: 'img2' < 'img10'.  (Copy of ``natural_keys``
-    in ``torchpiv_tpu/utils/persistence.py``.)"""
-    return [int(c) if c.isdigit() else c for c in re.split(r"(\d+)", text)]
+    """Human-order sort key: 'img2' < 'img10'.  (Copy of ``atoi`` and
+    ``natural_keys`` in ``torchpiv_tpu/utils/persistence.py``.)"""
+    return [atoi(c) for c in re.split(r"(\d+)", text)]
 
 
 def compute_background(dataset, n_pairs: int = 20) -> Optional[np.ndarray]:

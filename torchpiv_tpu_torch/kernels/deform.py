@@ -14,9 +14,24 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..config import MAX_DEF_TILE, def_tile
 from ..ops.deform import DefOperands, def_operands, def_reference
 from . import _build
+
+
+MAX_DEF_TILE = 129  # the TPU kernel's limit on the tile side
+
+
+def def_tile(wind_size: int, margin: int, interp: str) -> int:
+    """Side of the frame tile one DEF window samples from."""
+    return wind_size + 2 * margin + (4 if interp == "bicubic" else 1)
+
+
+def def_pallas_supported(wind_size: int, margin: int = 2,
+                         interp: str = "bilinear") -> bool:
+    """Whether the deformation kernel takes windows of this size (the TPU
+    kernel's predicate, ``torchpiv_tpu/kernels/def_pallas.py:61-70``): the
+    engine sends larger windows to ``ops.deform.def_windows_xla``."""
+    return def_tile(wind_size, margin, interp) <= MAX_DEF_TILE
 
 
 def describe(wind_size: int, margin: int, interp: str) -> Dict[str, int]:
@@ -31,10 +46,11 @@ def describe(wind_size: int, margin: int, interp: str) -> Dict[str, int]:
 def check_tile(wind_size: int, margin: int, interp: str) -> None:
     if interp not in ("bilinear", "bicubic"):
         raise ValueError(f"unknown interp {interp!r}")
-    T = def_tile(wind_size, margin, interp)
-    if T > MAX_DEF_TILE:
+    if not def_pallas_supported(wind_size, margin, interp):
         raise ValueError(f"def_windows: wind_size={wind_size} margin={margin} "
-                         f"interp={interp!r} needs a {T} px tile > {MAX_DEF_TILE}")
+                         f"interp={interp!r} needs a "
+                         f"{def_tile(wind_size, margin, interp)} px tile > "
+                         f"{MAX_DEF_TILE}")
 
 
 def launch(ops: DefOperands, wind_size: int) -> torch.Tensor:

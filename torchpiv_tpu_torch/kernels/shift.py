@@ -38,14 +38,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..config import MAX_BICUBIC_WIND, MAX_SHIFT_WIND
 from ..ops.packing import pack_windows, packed_width
 from ..ops.shifts import (VARIANTS, ShiftOperands, blend_reference_bicubic,
                           blend_reference_variant, shift_operands)
 from . import _build
 
-# the limits of the TPU kernels, kept so that both engines take the same
-# configurations
+# the limits of the TPU kernels, kept so that both engines send the same
+# windows to the kernels and the rest to the XLA-semantics shifts
+MAX_SHIFT_WIND = 128  # the bilinear kernels
+MAX_BICUBIC_WIND = 125  # the bicubic kernel
 MAX_WIND = {"bilinear": MAX_SHIFT_WIND, "bicubic": MAX_BICUBIC_WIND}
 # the kernels with a ``<name>_describe`` entry, and the widths they take
 DESCRIBED = {"shift_windows": MAX_SHIFT_WIND,
@@ -55,6 +56,14 @@ DESCRIBED = {"shift_windows": MAX_SHIFT_WIND,
              "shift_windows_lanephases": MAX_SHIFT_WIND}
 # the variants whose kernel reads a bfloat16 copy of the padded frame
 BF16_FRAME_VARIANTS = ("mxu", "phases")
+
+
+def shift_pallas_supported(wind_size: int, interp: str = "bilinear") -> bool:
+    """Whether the shift kernels take windows of this size (the TPU
+    kernel's predicate, ``torchpiv_tpu/kernels/shift_pallas.py:301-310``):
+    the engine sends larger windows to ``ops.shifts.cws_shift``,
+    ``bicubic_cws_shift`` or ``dws_shift``."""
+    return wind_size <= MAX_WIND[interp]
 
 
 def describe(wind_size: int, name: str = "shift_windows") -> Dict[str, int]:
@@ -187,7 +196,7 @@ def shift_windows(
                              "kernels only")
     if packed and interp != "bilinear":
         raise ValueError("packed output is bilinear only")
-    if wind_size > MAX_WIND[interp]:
+    if not shift_pallas_supported(wind_size, interp):
         raise ValueError(f"shift_windows: wind_size={wind_size} > "
                          f"{MAX_WIND[interp]} ({interp})")
     if out_dtype != torch.float32:

@@ -26,6 +26,17 @@ Pass semantics are the JAX engine's:
 ``peakfit="pallas"`` runs the fused peak-fit kernel instead of the chain of
 torch ops (``"xla"``, the default); both give the same fields.
 
+``use_pallas`` chooses the resampling of the refine passes, as in the JAX
+engine (``_use_pallas``): "auto" and "on" run the kernels, "off" the JAX
+engine's XLA paths (``ops.shifts.cws_shift``, ``bicubic_cws_shift``,
+``dws_shift``, ``ops.deform.def_windows_xla``: per-pixel weights, no clamp
+to ``max_shift``).  Under "auto"/"on" the XLA paths also take the windows
+beyond the kernels' limits (``shift_pallas_supported``,
+``def_pallas_supported``) and bicubic CWS with a ``shift_variant`` other
+than "rolls".  ``fused="on"`` keeps its kernel, and pass 1 is the same
+either way.  The choice follows from the configuration and the window size
+before any launch.
+
 ``shift_variant`` selects the bilinear shift kernel of the CWS and DWS
 passes (``kernels.shift``: ``"rolls"``, ``"bf16"``, ``"lanephases"``,
 ``"mxu"``, ``"phases"``), unfused and under ``fused="split"``; an unknown
@@ -84,16 +95,17 @@ from torch import nn
 
 from ..config import PIVConfig, compute_dtype
 from ..kernels.corrfit import correlate_peakfit
-from ..kernels.deform import def_windows
+from ..kernels.deform import def_pallas_supported, def_windows
 from ..kernels.fused_pass import fused_piv_pass
 from ..kernels.peakfit import peakfit
-from ..kernels.shift import shift_windows
+from ..kernels.shift import shift_pallas_supported, shift_windows
 from ..ops.corrfit import corrfit_supported
 from ..ops.correlate import correlate_fft, mean_normalize, rpc_filter
+from ..ops.deform import def_windows_xla
 from ..ops.geometry import get_coordinates, get_field_shape, per_window_origins
 from ..ops.infill import fused_infill
 from ..ops.peakfit import correlation_to_displacement
-from ..ops.shifts import VARIANTS
+from ..ops.shifts import VARIANTS, bicubic_cws_shift, cws_shift, dws_shift
 from ..ops.spline import upsample_matrices
 from ..ops.validation import (apply_median_filter, global_std_test,
                               second_peak_acceptance, velocity_limits_test)
@@ -242,6 +254,34 @@ class MultipassPIV(nn.Module):
         return correlation_to_displacement(
             maps, validate, cfg.val_ratio, cfg.validation_window,
             min_subtract=True, fit=cfg.subpixel, return_second=want_second)
+
+    def _use_pallas(self) -> bool:
+        """Refine passes resample through the kernels (``use_pallas``
+        "auto" or "on": the card stands in for the TPU, whose kernels the
+        JAX engine runs there), or through the JAX engine's XLA paths
+        ("off"); ``pallas_interpret`` keeps the kernels, as in the JAX
+        engine."""
+        cfg = self.config
+        return cfg.use_pallas != "off" or cfg.pallas_interpret
+
+    def _shift_kernel(self, w: int) -> bool:
+        """Pass windows of width ``w`` come from a shift kernel (CWS, DWS):
+        not under "off", not for bicubic CWS with a variant other than
+        "rolls", and only within the kernels' limits."""
+        cfg = self.config
+        bicubic = cfg.multipass_mode == "CWS" and cfg.cws_interp == "bicubic"
+        return (self._use_pallas()
+                and not (bicubic and cfg.shift_variant != "rolls")
+                and shift_pallas_supported(w, "bicubic" if bicubic else "bilinear"))
+
+    def _window_origins(self, p, rows=None):
+        """Pass ``p``'s flat ``[N]`` window origins on the device, or those
+        of the block of window rows ``rows=(org, n)``."""
+        r0, c0 = getattr(self, f"origins_{p}")
+        if rows is not None:
+            C = self.field_shapes[p][1]
+            r0, c0 = (t[rows[0] * C:(rows[0] + rows[1]) * C] for t in (r0, c0))
+        return r0, c0
 
     def _shift_variant(self) -> str:
         """The bilinear shift kernel of the CWS and DWS passes."""
@@ -401,16 +441,33 @@ class MultipassPIV(nn.Module):
             if rows is not None:
                 grads = [g[:, org:org + R] for g in grads]
             maps = [sx, sy] + [g.reshape(B, -1).float() for g in grads]
-            kw.update(margin=cfg.def_margin, interp=cfg.cws_interp)
-            aa = def_windows(self._in_dtype(frame_a), *(-m for m in maps), **kw)
-            bb = def_windows(self._in_dtype(frame_b), *maps, **kw)
-        else:
+            if self._use_pallas() and def_pallas_supported(
+                    w, cfg.def_margin, cfg.cws_interp):
+                kw.update(margin=cfg.def_margin, interp=cfg.cws_interp)
+                aa = def_windows(self._in_dtype(frame_a), *(-m for m in maps), **kw)
+                bb = def_windows(self._in_dtype(frame_b), *maps, **kw)
+            else:  # the XLA path: dense per-pixel shifts, in ``dtype``
+                xkw = dict(interp=cfg.cws_interp, dtype=self.compute_dtype)
+                r0, c0 = self._window_origins(p, rows)
+                aa = def_windows_xla(frame_a, r0, c0, w, *(-m for m in maps),
+                                     **xkw).float()
+                bb = def_windows_xla(frame_b, r0, c0, w, *maps, **xkw).float()
+        elif self._shift_kernel(w):
             if cfg.multipass_mode == "CWS":  # DWS stays the integer copy
                 kw.update(interp=cfg.cws_interp)
             if kw.get("interp", "bilinear") == "bilinear":
                 kw.update(variant=self._shift_variant())
             aa = shift_windows(self._in_dtype(frame_a), -sx, -sy, **kw)
             bb = shift_windows(self._in_dtype(frame_b), sx, sy, **kw)
+        else:  # the XLA paths: per-pixel weights, no clamp, in ``dtype``
+            r0, c0 = self._window_origins(p, rows)
+            if cfg.multipass_mode == "DWS":
+                shift, vx, vy = dws_shift, sx.to(torch.int32), sy.to(torch.int32)
+            else:
+                shift = bicubic_cws_shift if cfg.cws_interp == "bicubic" else cws_shift
+                vx, vy = sx, sy
+            aa = shift(frame_a, r0, c0, w, -vx, -vy, self.compute_dtype).float()
+            bb = shift(frame_b, r0, c0, w, vx, vy, self.compute_dtype).float()
 
         cand = None
         if fused_result is not None:

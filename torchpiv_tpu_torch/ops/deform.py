@@ -37,6 +37,13 @@ addressing and the tile clamp never binds.
 ``ops.shifts``: the maps and the output cover just those rows, the frame is
 the whole frame, and a window's origin row is ``(row_start + r) * step +
 off``.
+
+``def_windows_xla`` is the JAX engine's XLA DEF path instead
+(``torchpiv_tpu/models/multipass.py:786-806``): the same per-pixel
+displacement built densely, ``vel + d/dx * off[j] + d/dy * off[i]`` with
+``off = arange(w) - (w - 1) / 2``, resampled by ``ops.shifts.cws_shift`` or
+``bicubic_cws_shift``: no clamp, no saturation, the reference's flat-index
+addressing.
 """
 from __future__ import annotations
 
@@ -44,8 +51,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .shifts import (flat_wrap_pad, gather_tiles, split_shift, window_grid,
-                     padded_origins)
+from .shifts import (bicubic_cws_shift, cws_shift, flat_wrap_pad,
+                     gather_tiles, padded_origins, split_shift, window_grid)
 
 
 class DefOperands(NamedTuple):
@@ -381,3 +388,37 @@ def def_windows_reference(
     ops = def_operands(frame, *maps, **kw)
     out = def_reference(ops, kw["wind_size"])
     return out if batched else out[0]
+
+
+def def_windows_xla(
+    frame: torch.Tensor,
+    row0w: torch.Tensor,
+    col0w: torch.Tensor,
+    wind_size: int,
+    vel_x: torch.Tensor,
+    vel_y: torch.Tensor,
+    dudx: torch.Tensor,
+    dudy: torch.Tensor,
+    dvdx: torch.Tensor,
+    dvdy: torch.Tensor,
+    interp: str = "bilinear",
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Deformed windows ``[B, N, w, w]`` in ``dtype`` through the JAX
+    engine's XLA path, from ``[B, H, W]`` frames, ``[N]`` window origins and
+    ``[B, N]`` centre shifts and gradients (``[N, w, w]`` from ``[H, W]`` and
+    ``[N]``).  The dense shifts are formed in ``dtype``; negated maps give
+    the negated shifts exactly, as the JAX engine's ``-du_d``."""
+    if interp not in ("bilinear", "bicubic"):
+        raise ValueError(f"unknown interp {interp!r}")
+    off = (torch.arange(wind_size, dtype=dtype, device=frame.device)
+           - (wind_size - 1) / 2.0)
+
+    def dense(center, gx, gy):
+        return (center.to(dtype)[..., None, None]
+                + gx.to(dtype)[..., None, None] * off
+                + gy.to(dtype)[..., None, None] * off[:, None])
+
+    resample = bicubic_cws_shift if interp == "bicubic" else cws_shift
+    return resample(frame, row0w, col0w, wind_size, dense(vel_x, dudx, dudy),
+                    dense(vel_y, dvdx, dvdy), dtype)

@@ -28,10 +28,18 @@ even, after the flat-wrap pad, as the TPU wrapper casts it) and blend in
 float32; ``"lanephases"`` reads the float32 frame.  On a frame whose values
 are exact in bfloat16 (8-bit grey levels) every variant equals ``"rolls"``.
 
-These differ from the XLA ``cws_shift``/``dws_shift`` of the JAX package
-(per-pixel weights, no clamp).  With ``flat_wrap`` the frame is padded by
-``flat_wrap_pad`` so edge windows reproduce the reference's flat-index
-clamped addressing.
+With ``flat_wrap`` the frame is padded by ``flat_wrap_pad`` so edge windows
+reproduce the reference's flat-index clamped addressing.
+
+The JAX engine's XLA paths (``cws_shift``, ``bicubic_cws_shift`` and
+``dws_shift`` at the end of this module, copies of
+``torchpiv_tpu/ops/shifts.py:39-194``) have other semantics, the
+reference's (``PIVbackend.py:147-216``): per-pixel coordinates and weights,
+no clamp to ``max_shift``, indices clamped on the *flattened* frame to
+``[0, H*W - 1]`` (an out-of-frame sample wraps into the previous or next
+row), and a pixel whose coordinate is an integer in either axis takes the
+floor corner (bilinear).  ``use_pallas="off"`` selects them, and so do
+windows beyond the kernels' limits (``MultipassPIV``).
 
 Row blocks (``row_start``, ``n_rows_local``; the TPU kernels' ``row0``
 scalar): the operands then cover window rows ``row_start .. row_start +
@@ -561,4 +569,132 @@ def shift_windows_reference(
         out = blend_reference_bicubic(ops, wind_size)
     else:
         out = blend_reference_variant(ops, wind_size, variant)
+    return out if batched else out[0]
+
+
+# ---------------------------------------------------------------------------
+# The JAX engine's XLA resampling paths: torch ops, computed in ``dtype``
+
+
+def _window_pixel_grids(row0w: torch.Tensor, col0w: torch.Tensor,
+                        wind_size: int):
+    """Per-pixel int32 (row, col) grids ``[N, w, 1]`` and ``[N, 1, w]`` from
+    ``[N]`` window origins."""
+    ar = torch.arange(wind_size, dtype=torch.int32, device=row0w.device)
+    gy = row0w.to(torch.int32)[:, None, None] + ar[None, :, None]
+    gx = col0w.to(torch.int32)[:, None, None] + ar[None, None, :]
+    return gy, gx
+
+
+def _batched(frame, vel_x, vel_y):
+    """``[B, H, W]`` frames and shifts that broadcast against ``[B, N, w,
+    w]`` (a per-window ``[B, N]`` map gains two unit axes), and whether the
+    frames came batched."""
+    batched = frame.dim() == 3
+    if not batched:
+        frame, vel_x, vel_y = frame[None], vel_x[None], vel_y[None]
+    if vel_x.dim() == 2:
+        vel_x, vel_y = vel_x[..., None, None], vel_y[..., None, None]
+    return frame, vel_x, vel_y, batched
+
+
+def _flat_sampler(frame: torch.Tensor):
+    """``take(idx)``: the samples of ``[B, H, W]`` frames at int32 flat
+    indices ``[B, ...]``, each clamped to ``[0, H*W - 1]`` within its own
+    frame (the reference's addressing)."""
+    B, H, W = frame.shape
+    numel = H * W
+    flat = frame.reshape(-1)
+    base = torch.arange(B, dtype=torch.int32, device=frame.device) * numel
+
+    def take(idx):
+        idx = idx.clamp(0, numel - 1) + base.view(B, *([1] * (idx.dim() - 1)))
+        return flat.index_select(0, idx.reshape(-1)).reshape(idx.shape)
+
+    return take
+
+
+def cws_shift(frame: torch.Tensor, row0w: torch.Tensor, col0w: torch.Tensor,
+              wind_size: int, vel_x: torch.Tensor, vel_y: torch.Tensor,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Continuous window shift, bilinear with per-pixel weights.
+
+    ``frame``: ``[B, H, W]`` (or ``[H, W]``); ``row0w, col0w``: ``[N]``
+    window origins; ``vel_x, vel_y``: ``[B, N]`` per-window or ``[B, N, w,
+    w]`` per-pixel shifts in pixels (``[N]``, ``[N, w, w]`` unbatched).
+    Returns ``[B, N, w, w]`` in ``dtype``, which the coordinates, samples
+    and blend are computed in.  Mirrors reference
+    ``biliniar_interpolation_CWS`` (PIVbackend.py:147-194)."""
+    frame, vel_x, vel_y, batched = _batched(frame, vel_x, vel_y)
+    W = frame.shape[-1]
+    take = _flat_sampler(frame)
+    gy, gx = _window_pixel_grids(row0w, col0w, wind_size)
+    new_y = gy.to(dtype) + vel_y.to(dtype)
+    new_x = gx.to(dtype) + vel_x.to(dtype)
+    up_x = torch.ceil(new_x).to(torch.int32)
+    up_y = torch.ceil(new_y).to(torch.int32)
+    down_x = torch.floor(new_x).to(torch.int32)
+    down_y = torch.floor(new_y).to(torch.int32)
+    # an integer coordinate in either axis: the floor corner
+    integer_cell = (up_x - down_x) * (up_y - down_y) == 0
+
+    def sample(y, x):
+        return take(y * W + x).to(dtype)
+
+    f11 = sample(down_y, down_x)
+    f21 = sample(down_y, up_x)
+    f12 = sample(up_y, down_x)
+    f22 = sample(up_y, up_x)
+    ux, uy = up_x.to(dtype), up_y.to(dtype)
+    dx, dy = down_x.to(dtype), down_y.to(dtype)
+    f = (f11 * (ux - new_x) * (uy - new_y)
+         + f21 * (new_x - dx) * (uy - new_y)
+         + f12 * (ux - new_x) * (new_y - dy)
+         + f22 * (new_x - dx) * (new_y - dy))
+    out = torch.where(integer_cell, f11, f)
+    return out if batched else out[0]
+
+
+def bicubic_cws_shift(frame: torch.Tensor, row0w: torch.Tensor,
+                      col0w: torch.Tensor, wind_size: int, vel_x: torch.Tensor,
+                      vel_y: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Continuous window shift with Keys bicubic (a = -0.5) per-pixel
+    weights: ``cws_shift``'s arguments, addressing and result; the 16 taps
+    are summed over ``i`` (columns) inside ``j`` (rows), and integer
+    coordinates give the weights ``(0, 1, 0, 0)`` exactly."""
+    frame, vel_x, vel_y, batched = _batched(frame, vel_x, vel_y)
+    W = frame.shape[-1]
+    take = _flat_sampler(frame)
+    gy, gx = _window_pixel_grids(row0w, col0w, wind_size)
+    new_y = gy.to(dtype) + vel_y.to(dtype)
+    new_x = gx.to(dtype) + vel_x.to(dtype)
+    fy = torch.floor(new_y)
+    fx = torch.floor(new_x)
+    wy = cubic_weights(new_y - fy)
+    wx = cubic_weights(new_x - fx)
+    iy = fy.to(torch.int32)
+    ix = fx.to(torch.int32)
+    zero = torch.zeros((), dtype=dtype, device=frame.device)
+    out = zero
+    for j, wyj in enumerate(wy):
+        idx_row = (iy + (j - 1)) * W
+        acc = zero
+        for i, wxi in enumerate(wx):
+            acc = acc + wxi * take(idx_row + ix + (i - 1)).to(dtype)
+        out = out + wyj * acc
+    return out if batched else out[0]
+
+
+def dws_shift(frame: torch.Tensor, row0w: torch.Tensor, col0w: torch.Tensor,
+              wind_size: int, vel_x: torch.Tensor, vel_y: torch.Tensor,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Discrete window shift: the integer copy of each window at ``[B, N]``
+    per-window shifts (truncated to int32), in ``dtype``.  Mirrors reference
+    ``interpolation_DWS`` (PIVbackend.py:197-216)."""
+    frame, vel_x, vel_y, batched = _batched(frame, vel_x, vel_y)
+    W = frame.shape[-1]
+    gy, gx = _window_pixel_grids(row0w, col0w, wind_size)
+    idx = (gy + vel_y.to(torch.int32)) * W + gx + vel_x.to(torch.int32)
+    out = _flat_sampler(frame)(idx).to(dtype)
     return out if batched else out[0]

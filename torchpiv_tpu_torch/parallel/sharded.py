@@ -20,7 +20,11 @@ recomputed, never wrong.  A window shard runs the engine's own passes on
 its block of window rows (``MultipassPIV.first_pass``/``_refine_pass`` with
 ``rows=``): pass 1 on the frame band that holds the block, the predictor
 from the block's rows of the upsample matrix, and the hand-written shift
-and deformation kernels on the block (``row_start``/``n_rows_local``).  As
+and deformation kernels on the block (``row_start``/``n_rows_local``), or,
+where the engine takes the JAX engine's XLA paths (``use_pallas="off"``,
+windows beyond the kernels' limits, bicubic CWS with a shift variant: the
+same rule as the unsharded engine and the JAX ``ShardedPIV``), those paths
+on the block's window origins.  As
 in the JAX ``ShardedPIV`` the window split runs the unfused correlation and
 peak fit whatever ``fused`` says
 (``peakfit="pallas"`` still runs the peak-fit kernel on each shard's

@@ -1,7 +1,7 @@
 """Result persistence + filename helpers (copy of
-``torchpiv_tpu/utils/persistence.py``; ``natural_keys`` is the port's
-``io.dataset.natural_keys``, and ``save_table`` writes through the port's
-native formatter, ``native.loader.write_table``).
+``torchpiv_tpu/utils/persistence.py``; ``atoi`` and ``natural_keys`` are
+the port's ``io.dataset.atoi`` and ``natural_keys``, and ``save_table``
+writes through the port's native formatter, ``native.loader.write_table``).
 
 Mirrors the reference's PlotterFunctions persistence surface
 (``PlotterFunctions.py:16-65, 100-111``): natural
@@ -16,7 +16,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from ..io.dataset import natural_keys
+from ..io.dataset import atoi, natural_keys  # noqa: F401 (re-exported)
 
 
 _UNIQ_RE = re.compile(r"^(?P<base>.*) \((?P<n>\d+)\)$")
