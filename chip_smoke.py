@@ -145,7 +145,22 @@ Phases, each failing loudly:
    ``"off"`` and SCC at ``"auto"`` (pairs yielded, bad %, RMS of the good
    vectors and of all; moderate SCC yields all pairs with bad < 1% and
    RMS(good) < 0.3 px, harsh RPC and fallback yield more pairs than harsh
-   SCC), and one harsh pair on the card against the CPU engine.
+   SCC), and one harsh pair on the card against the CPU engine, through the
+   functions of ``tools/degraded_campaign_cuda.py``;
+14. the user-facing scripts beside the package (``phase_scripts``):
+   ``tools/sustained_run_cuda.py`` at its defaults (4,000 pairs of
+   2048x2048, batch 8, the host tail on every pair; every repeat of a
+   unique pair gives that pair's first digest, each unique pair's mean
+   within 0.05 px, row 1's launches exact), ``tools/coldstart_cuda.py`` in
+   fresh interpreters (warm, with an empty ``TORCHPIV_CACHE_DIR``, warm
+   again; 48 pairs at 4 MP; row 1 alone loads, at its first launch, and
+   only it and the decoder are built into the empty cache), ``tools/accuracy_table_cuda.py``'s table and
+   sections at ``"auto"`` (every cell finite, peak locking under 0.05 px,
+   DEF below CWS on the shear, rows 1-3 launched), the five
+   ``examples/*_cuda.py`` through ``main`` on the card and their ``run``
+   on the card against the CPU (the parity budget; PTV phase 11's gates),
+   and ``tools/degraded_campaign_cuda.py`` at its defaults (512x512, 6
+   pairs, both tiers).
 
 Phase 3 also runs ``tools/shift_anatomy_cuda.py``'s six modes of the
 window-shift kernel at pass 2 (``full``, ``noshuffle`` and ``rowbyrow``
@@ -3027,18 +3042,10 @@ LIMIT_PATHS = (
      {"shift_windows_bicubic": 2}, BATCH),
     ("DEF w248/o124 (129 px tile)", "shear",
      dict(wind_size=248, overlap=124, multipass_mode="DEF"), {"def_windows": 2}, BATCH))
-# (c): the tiers of tools/degraded_campaign.py:37-62 (passed here: the tool
-# imports the JAX package), its true flow and its run settings (:130-142)
-TIERS = {
-    "moderate": dict(density=0.012, dropout=0.15, intensity_flicker=0.25,
-                     vignette=0.55, glare_amplitude=45.0, read_noise=4.0,
-                     shot_noise=True, hot_pixel_rate=3e-5),
-    "harsh": dict(density=0.005, dropout=0.25, intensity_flicker=0.4, vignette=0.7,
-                  glare_amplitude=90.0, read_noise=6.0, shot_noise=True,
-                  hot_pixel_rate=1e-4)}
+# (c): the camera-degraded campaign of tools/degraded_campaign_cuda.py (its
+# tiers, pairs, settings and metrics) at the main path's frame
+CAMPAIGN_TOOL = "tools/degraded_campaign_cuda.py"
 N_DEGRADED = 6  # pairs a tier
-CAMPAIGN_RUN = dict(wind_size=64, overlap=32, multipass=2, multipass_mode="CWS",
-                    dt=1000.0, scale=1.0, batch_size=BATCH)  # fields in px
 CAMPAIGN_MODES = (("SCC", "off", {}), ("RPC", "off", {"correlation": "rpc"}),
                   ("fallback", "off", {"second_peak_fallback": True}),
                   ("SCC", "auto", {}))
@@ -3052,41 +3059,6 @@ def field_difference(engine_a, engine_b, a, b) -> tuple:
     both = ~(ia | ib)
     d = np.concatenate([(ua - ub)[both], (va - vb)[both]]).astype(np.float64)
     return float((ia != ib).mean()), float(np.sqrt(np.mean(d ** 2)))
-
-
-def write_degraded(folder: str, tier: str) -> None:
-    """The campaign's pairs of ``tier`` at the main path's frame, in threads."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from torchpiv_tpu_torch.io.decode import imwrite_gray
-    from torchpiv_tpu_torch.utils.synthetic import camera_degraded_pair
-
-    os.makedirs(folder)
-
-    def one(i):
-        fa, fb = camera_degraded_pair(FRAME, displacement=DISPLACEMENT,
-                                      seed=100 + i, **TIERS[tier])
-        imwrite_gray(os.path.join(folder, f"d{i:03d}_a.bmp"), fa)
-        imwrite_gray(os.path.join(folder, f"d{i:03d}_b.bmp"), fb)
-
-    with ThreadPoolExecutor(4) as pool:
-        list(pool.map(one, range(N_DEGRADED)))
-
-
-def campaign_metrics(fields) -> dict:
-    """``tools/degraded_campaign.py``'s ``field_metrics`` (:107-128): error
-    against the true flow (v flipped by the pipeline), ``bad`` = more than 1
-    px off, RMS of the rest and of all."""
-    if not fields:
-        return {"pairs_yielded": 0, "bad_pct": None, "rms_good_px": None,
-                "rms_all_px": None}
-    e = np.concatenate([np.sqrt((u.astype(np.float64) - DISPLACEMENT[0]) ** 2
-                                + (v.astype(np.float64) + DISPLACEMENT[1]) ** 2).ravel()
-                        for _, _, u, v in fields])
-    bad = e > 1.0
-    return {"pairs_yielded": len(fields), "bad_pct": 100.0 * float(bad.mean()),
-            "rms_good_px": float(np.sqrt(np.mean(e[~bad] ** 2))) if (~bad).any() else None,
-            "rms_all_px": float(np.sqrt(np.mean(e ** 2)))}
 
 
 def phase_xla_off(folders: dict, kernels, kernel_profiles: dict, smi: str) -> None:
@@ -3165,23 +3137,23 @@ def phase_beyond_limits(folders: dict, kernels) -> None:
 
 
 def phase_degraded(tmp: str, kernels, smi: str) -> None:
-    """Phase 13 (c): the camera-degraded campaign at the main path's frame."""
-    from torchpiv_tpu_torch import OfflinePIV
-
+    """Phase 13 (c): the camera-degraded campaign at the main path's frame,
+    through the functions of ``tools/degraded_campaign_cuda.py``."""
+    campaign = load_tool(CAMPAIGN_TOOL)
     t0 = time.perf_counter()
     tiers = {}
-    for tier in TIERS:
+    for tier in campaign.TIERS:
         tiers[tier] = os.path.join(tmp, f"degraded_{tier}")
-        write_degraded(tiers[tier], tier)
+        campaign.make_dataset(tiers[tier], FRAME[0], N_DEGRADED, tier)
     log(f"wrote {N_DEGRADED} pairs a tier of {FRAME} in {time.perf_counter() - t0:.1f} s")
     table = {}
     for tier, folder in tiers.items():
         for mode, pallas, options in CAMPAIGN_MODES:
             label = f"{tier} {mode} use_pallas={pallas}"
-            piv = OfflinePIV(folder, engine_options={"use_pallas": pallas, **options},
-                             **CAMPAIGN_RUN)
+            piv = campaign.offline(folder, "cuda", pallas, engine_options=options,
+                                   batch_size=BATCH)
             fields, launches, _ = drive(piv, kernels)
-            table[label] = campaign_metrics(fields)
+            table[label] = campaign.field_metrics(fields)
             log(json.dumps({"campaign": label, **table[label], "launches": launches,
                             "card": smi}))
     moderate = table["moderate SCC use_pallas=off"]
@@ -3206,6 +3178,291 @@ def phase_xla_paths(uniform: str, shear: str, tmp: str, kernels, kernel_profiles
     log(f"phase 13 (b) done at {time.perf_counter() - t0:.1f} s")
     phase_degraded(tmp, kernels, smi)
     log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+
+
+# ---- phase 14: the scripts beside the package ---------------------------------
+
+SUSTAINED_TOOL = "tools/sustained_run_cuda.py"
+COLDSTART_TOOL = "tools/coldstart_cuda.py"
+ACCURACY_TOOL = "tools/accuracy_table_cuda.py"
+EXAMPLES = ("demo", "postprocess_demo", "dense_demo", "tracking_pressure_demo",
+            "sharded_demo")
+BIAS_BUDGET = 0.05  # px: tests/test_accuracy_modes.py, the peak-locking pin
+COLDSTART_PARTS = ("imports_s", "card_init_s", "decoder_load_s", "engine_build_s",
+                   "first_batch_s")
+
+
+def scripts_sustained(kernels, smi: str) -> None:
+    """The sustained run at its defaults (4,000 pairs of 2048x2048, batch 8):
+    every repeat of a unique pair gives that pair's first digest (a hash of
+    its ``u, v`` bytes, taken inside the timed loop), and each unique pair's
+    interior mean lies within 0.05 px of the displacement."""
+    import hashlib
+
+    tool = load_tool(SUSTAINED_TOOL)
+    s = tool.settings()
+    digests, means, differing = {}, {}, []
+
+    def on_field(k, i, field):
+        check(field is not None, f"sustained run: pair {k} was skipped")
+        _, _, u, v = field
+        d = hashlib.blake2b(u.tobytes() + v.tobytes(), digest_size=16).digest()
+        if digests.setdefault(i, d) != d:
+            differing.append(k)
+        if i not in means:
+            check(np.isfinite(u).all() and np.isfinite(v).all(), "sustained: non-finite")
+            means[i] = (float(u[2:-2, 2:-2].mean()) / UNIT,
+                        -float(v[2:-2, 2:-2].mean()) / UNIT)
+
+    zero_counts(kernels)
+    out = tool.run(torch.device("cuda"), frame=tool.FRAME, on_field=on_field, **s)
+    launches = read_counts(kernels)
+    n_dispatches = -(-s["n_pairs"] // s["batch"])
+    check(out["n_pairs"] == s["n_pairs"] == 4000 and tool.FRAME == FRAME,
+          f"sustained run: {out['n_pairs']} pairs of {tool.FRAME}")
+    check(not differing, f"sustained run: {len(differing)} pairs differ from their "
+                         f"unique pair's first field, the first {differing[:5]}")
+    check(len(digests) == s["n_unique"], f"sustained run: {len(digests)} unique pairs")
+    for i, (mu, mv) in means.items():
+        check(abs(mu - DISPLACEMENT[0]) < 0.05 and abs(mv - DISPLACEMENT[1]) < 0.05,
+              f"sustained run: unique pair {i} mean ({mu}, {mv})")
+    # the excluded first batch and every timed dispatch: row 1 twice a call
+    check(launches == only(launches, shift_windows=2 * (n_dispatches + 1)),
+          f"sustained run: launches {launches}")
+    log(json.dumps({"metric": out["metric"], "value": out["value"], "unit": "s",
+                    "pairs_per_sec": out["pairs_per_sec"], "n_pairs": out["n_pairs"],
+                    "batch": s["batch"], "compile_first_batch_s":
+                    out["compile_first_batch_s"], "checkpoints": out["checkpoints"],
+                    "launches": launches, "unique_means_px": means, "card": smi}))
+
+
+def coldstart_run(folder: str, cache_dir, label: str) -> dict:
+    """``tools/coldstart_cuda.py`` in a fresh interpreter over ``folder``,
+    with ``TORCHPIV_CACHE_DIR`` set to ``cache_dir`` (None: this process's
+    build cache); returns its JSON line with the process's wall seconds."""
+    env = dict(os.environ)
+    if cache_dir is not None:
+        env["TORCHPIV_CACHE_DIR"] = cache_dir
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                      COLDSTART_TOOL), "--folder", folder],
+        env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cold start {label}: exit {proc.returncode}\n"
+                                f"{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    parts = out["parts"]
+    check(all(parts[k] >= 0 for k in COLDSTART_PARTS)
+          and sum(parts[k] for k in COLDSTART_PARTS) <= out["value"] + 1e-3
+          and out["value"] <= out["total_s"] and out["n_pairs"] == 48,
+          f"cold start {label}: {out}")
+    # the kernels load lazily, inside the engine build and the first batch,
+    # and a 2-pass CWS engine launches row 1 alone
+    check(list(out["kernel_loads"]) == ["shift_windows"]
+          and out["kernel_load_s"] <= parts["engine_build_s"] + parts["first_batch_s"] + 1e-3,
+          f"cold start {label}: kernels {out['kernel_loads']}")
+    out["process_wall_s"] = wall
+    log(json.dumps({"coldstart": label, **out}))
+    return out
+
+
+def scripts_coldstart(tmp: str) -> None:
+    """Time to first field in fresh interpreters: warm (the build cache of
+    phase 2), with an empty ``TORCHPIV_CACHE_DIR`` (``nvcc`` builds the
+    kernel the engine launches, ``g++`` the decoder, as on a user's first
+    run) and warm again.  The first call makes the folder (4 generated
+    pairs, 44 hard links), which its timing excludes."""
+    folder = os.path.join(tmp, "coldstart_pairs")
+    empty = os.path.join(tmp, "coldstart_cache")
+    warm = coldstart_run(folder, None, "warm")
+    cold = coldstart_run(folder, empty, "empty cache")
+    again = coldstart_run(folder, None, "warm again")
+    built = sorted(b.split("-")[0] for b in os.listdir(empty) if b.endswith(".so"))
+    check(built == ["libfastio", "libshift_windows"]
+          and cold["kernel_loads"]["shift_windows"]["built"]
+          and not warm["kernel_loads"]["shift_windows"]["built"]
+          and not again["kernel_loads"]["shift_windows"]["built"],
+          f"cold start: the empty cache holds {os.listdir(empty)}")
+    log(f"cold start: time to first field {warm['value']:.3f} / {again['value']:.3f} s "
+        f"warm, {cold['value']:.3f} s with an empty cache (row 1's load "
+        f"{cold['kernel_load_s']:.3f} s against {warm['kernel_load_s']:.3f}, the decoder's "
+        f"{cold['parts']['decoder_load_s']:.3f} against "
+        f"{warm['parts']['decoder_load_s']:.3f}); processes {warm['process_wall_s']:.2f} / "
+        f"{cold['process_wall_s']:.2f} / {again['process_wall_s']:.2f} s")
+
+
+def scripts_accuracy(kernels, smi: str) -> None:
+    """The accuracy table and its three sections on the card at
+    ``use_pallas="auto"`` (rows 1-3): every cell finite, max |bias| over the
+    sweep under the budget of ``tests/test_accuracy_modes.py``, DEF below
+    CWS on the shear for each resampling and fit."""
+    tool = load_tool(ACCURACY_TOOL)
+    run = tool.Runner(torch.device("cuda"), "auto")
+    zero_counts(kernels)
+    res = tool.eval_table(run)
+    launches = read_counts(kernels)
+    log(f"accuracy table ({smi}):\n{tool.HEADER}\n"
+        + "\n".join(tool.table_row(n, m) for n, m in res.items()))
+    for name, m in res.items():
+        check(all(np.isfinite(x) for x in m.values()), f"accuracy {name}: {m}")
+        check(m["pk_bias"] < BIAS_BUDGET, f"accuracy {name}: peak locking {m['pk_bias']}")
+        if name.startswith("DEF/"):
+            cws = res["CWS/" + name[4:]]
+            check(m["sh_rms"] < cws["sh_rms"],
+                  f"accuracy {name}: shear RMS {m['sh_rms']} not below CWS {cws['sh_rms']}")
+    check(all(launches[k] > 0 for k in ("shift_windows", "shift_windows_bicubic",
+                                        "def_windows")),
+          f"accuracy table: launches {launches}")
+    log(f"accuracy table: launches {launches}")
+    log(tool.smoothing_text(tool.CONFIGS[0][0], tool.eval_smoothing(run, tool.CONFIGS[0][1])))
+    log(tool.rpc_text(tool.eval_rpc(run)))
+    tot, glare = tool.eval_rescue(run)
+    log(tool.rescue_text(tot, glare))
+    check(glare["rescued"] == 0, f"rescue: the glare blob was rescued: {glare}")
+
+
+def fields_within(got, want, label: str) -> tuple:
+    """Two ``(u, v, invalid)`` stacks within the parity budget: mask
+    mismatch < 2%, RMS < 0.01 px on jointly valid vectors; returns both."""
+    (gu, gv, gi), (wu, wv, wi) = got, want
+    both = ~(gi | wi)
+    flips = float(np.mean(gi != wi))
+    d = np.concatenate([(gu - wu)[both], (gv - wv)[both]]).astype(np.float64)
+    rms = float(np.sqrt(np.mean(d ** 2))) if d.size else 0.0
+    check(flips < 0.02 and rms < 0.01, f"{label}: mask mismatch {flips}, RMS {rms}")
+    return flips, rms
+
+
+def example_gaps(name: str, ex, card: dict, cpu: dict) -> str:
+    """The card's run of example ``name`` against its CPU run, gated."""
+    if name == "demo":
+        t, w = card["table"], cpu["table"]
+        check(np.array_equal(t["x[mm]"], w["x[mm]"]) and card["pairs"] == cpu["pairs"],
+              "demo: grids or pair counts differ")
+        px = 1000.0 * 0.05 / 2.0  # m/s a px at the demo's scale and dt
+        d = np.concatenate([(t[k] - w[k]).ravel() for k in ("Vx[m/s]", "Vy[m/s]")]) / px
+        rms = float(np.sqrt(np.mean(d ** 2)))
+        check(rms < 0.01 and np.mean(np.abs(d) > 0.01) < 0.02, f"demo: RMS {rms} px")
+        return (f"pairs {card['pairs']}, peak |V| {card['peak_speed']:.4f} m/s (CPU "
+                f"{cpu['peak_speed']:.4f}); mean fields RMS {rms:.3e} px")
+    if name == "postprocess_demo":
+        worst = max(fields_within(g, w, f"postprocess snapshot {i}")[1]
+                    for i, (g, w) in enumerate(zip(card["raw"], cpu["raw"])))
+        rel = abs(card["median_uncertainty"] - cpu["median_uncertainty"]) / abs(
+            cpu["median_uncertainty"])
+        check(rel < 1e-4, f"postprocess: median uncertainty {rel} relative")
+        return (f"median uncertainty {card['median_uncertainty']:.5f} px (CPU "
+                f"{cpu['median_uncertainty']:.5f}), POD mode-0 energy "
+                f"{card['pod_energy0']:.4f} (CPU {cpu['pod_energy0']:.4f}); snapshots' "
+                f"worst RMS {worst:.3e} px")
+    if name == "dense_demo":
+        worst = 0.0
+        for field in ex.NAMES:
+            (gu, gok), (wu, wok) = card["fields"][field], cpu["fields"][field]
+            both = gok & wok
+            check(np.mean(gok != wok) < 0.02, f"dense {field}: masks differ")
+            worst = max(worst, float(np.sqrt(np.mean((gu - wu)[both] ** 2))))
+        check(worst < 0.01, f"dense: RMS {worst}")
+        return ("u-error RMS " + ", ".join(f"{f} {card['rms'][f]:.5f} (CPU "
+                                           f"{cpu['rms'][f]:.5f})" for f in ex.NAMES)
+                + f" px; fields' worst RMS {worst:.3e} px")
+    if name == "tracking_pressure_demo":
+        g, w = card["res"], cpu["res"]
+        gt = {(round(float(x), 3), round(float(y), 3)): (u, v)
+              for x, y, u, v in zip(g.x, g.y, g.u, g.v)}
+        wt = {(round(float(x), 3), round(float(y), 3)): (u, v)
+              for x, y, u, v in zip(w.x, w.y, w.u, w.v)}
+        common = set(gt) & set(wt)
+        track = 1e-4 + 2 * float(np.spacing(np.float32(511)))  # phase 11's gate
+        gap = max((max(abs(gt[k][0] - wt[k][0]), abs(gt[k][1] - wt[k][1]))
+                   for k in common), default=0.0)
+        check((g.n_a, g.n_b) == (w.n_a, w.n_b)
+              and len(common) >= 0.99 * max(len(gt), len(wt)) and gap <= track,
+              f"PTV demo: detections or tracks differ on the card (gap {gap})")
+        check(card["core"] == cpu["core"], f"PTV demo: core {card['core']} {cpu['core']}")
+        return (f"{g.n_a} particles detected, {len(g.x)} tracked (CPU {len(w.x)}), "
+                f"largest track gap {gap:.3e} px; Gamma1 core {card['core']}, "
+                f"|Gamma1| {card['gamma1_core']:.4f} (CPU {cpu['gamma1_core']:.4f}), "
+                f"pressure at core {card['p_core']:.5g} (CPU {cpu['p_core']:.5g})")
+    _, rms = fields_within((card["u"], card["v"], card["invalid"]),
+                           (cpu["u"], cpu["v"], cpu["invalid"]), "sharded demo")
+    means = [float(card["u"][i][~card["invalid"][i]].mean())
+             for i in range(len(card["true_u"]))]
+    return (f"mesh {dict(card['mesh'].shape)} over {card['devices']}; mean u "
+            + ", ".join(f"{m:+.4f} (true {t:+.1f})" for m, t in zip(means, card["true_u"]))
+            + f"; RMS against the CPU {rms:.3e} px")
+
+
+def example_run(name: str, ex, device, out_dir: str) -> dict:
+    """``run`` of example ``name`` on ``device``."""
+    if name == "demo":
+        return ex.run(out_dir, device)
+    if name == "sharded_demo":
+        return ex.run(device, 2)
+    return ex.run(device)
+
+
+def scripts_examples(tmp: str, kernels, smi: str) -> None:
+    """Each example through ``main`` on the card (its printed lines and,
+    where matplotlib is installed, its figure), then its ``run`` on the card
+    and on the CPU, within the parity budget (PTV: phase 11's gates)."""
+    for name in EXAMPLES:
+        ex = load_tool(f"examples/{name}_cuda.py")
+        out_dir = os.path.join(tmp, f"example_{name}")
+        t0 = time.perf_counter()
+        argv = ["--devices", "2"] if name == "sharded_demo" else [out_dir + "_main"]
+        zero_counts(kernels)
+        rc = ex.main(argv)
+        launches = read_counts(kernels)
+        main_s = time.perf_counter() - t0
+        check(rc == 0 and launches["shift_windows"] > 0,
+              f"{name}: exit {rc}, launches {launches}")
+        t0 = time.perf_counter()
+        card = example_run(name, ex, torch.device("cuda"), out_dir + "_card")
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = example_run(name, ex, torch.device("cpu"), out_dir + "_cpu")
+        cpu_s = time.perf_counter() - t0
+        log(f"example {name} ({smi}): main {main_s:.2f} s, run {card_s:.2f} s on the "
+            f"card, {cpu_s:.2f} s on the CPU; row 1 launches in main "
+            f"{launches['shift_windows']}; {example_gaps(name, ex, card, cpu)}")
+    figures = sorted(f for d in os.listdir(tmp) if d.startswith("example_")
+                     for f in os.listdir(os.path.join(tmp, d)) if f.endswith(".png"))
+    log(f"examples: figures drawn: {figures or 'none (no matplotlib)'}")
+
+
+def scripts_campaign(kernels, smi: str) -> None:
+    """The campaign tool at its defaults (512x512, 6 pairs), both tiers;
+    moderate SCC yields every pair with bad < 1% and RMS(good) < 0.3 px."""
+    tool = load_tool(CAMPAIGN_TOOL)
+    for tier in tool.TIERS:
+        zero_counts(kernels)
+        rows = tool.campaign(tier, 512, 6, "cuda")
+        launches = read_counts(kernels)
+        log(f"campaign {tier}, 512x512, 6 pairs ({smi}); launches {launches}:\n"
+            + tool.table(rows))
+        check(launches["shift_windows"] > 0, f"campaign {tier}: launches {launches}")
+        if tier == "moderate":
+            scc = rows["tpiv SCC (same settings)"]
+            check(scc["pairs_yielded"] == 6 and scc["bad_pct"] < 1.0
+                  and scc["rms_good_px"] < 0.3, f"campaign moderate SCC: {scc}")
+
+
+def phase_scripts(tmp: str, kernels, smi: str) -> None:
+    """Phase 14: the user-facing scripts beside the package on the card."""
+    t0 = time.perf_counter()
+    scripts_sustained(kernels, smi)
+    log(f"phase 14 sustained run done at {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    scripts_coldstart(tmp)
+    log(f"phase 14 cold start done at {time.perf_counter() - t0:.1f} s")
+    scripts_accuracy(kernels, smi)
+    log(f"phase 14 accuracy table done at {time.perf_counter() - t0:.1f} s")
+    scripts_examples(tmp, kernels, smi)
+    log(f"phase 14 examples done at {time.perf_counter() - t0:.1f} s")
+    scripts_campaign(kernels, smi)
+    log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -3324,6 +3581,8 @@ def main() -> int:
                            "CWS fused=split": fused_profiles["split"]}
         phase_xla_paths(uniform, shear, tmp, KERNELS, kernel_profiles, smi)
         log(f"XLA-path phase done at {time.perf_counter() - t_start:.1f} s")
+        phase_scripts(tmp, KERNELS, smi)
+        log(f"scripts phase done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the path that runs it
     on_path = {"shift_windows": cws_launches, "shift_windows_bicubic": bicubic_launches,
                "def_windows": def_launches, "peakfit": def_launches,

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -27,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_log: Dict[str, dict] = {}
 
 
 def __getattr__(name: str):
@@ -103,12 +105,22 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             s = _start(name)
             if s is not None:
                 _finish(name, s)
             lib = ctypes.CDLL(str(_target(name)))
             _loaded[name] = lib
+            _load_log[name] = {"s": time.perf_counter() - t0, "built": s is not None}
         return lib
+
+
+def load_log() -> Dict[str, dict]:
+    """Each source loaded in this process: the seconds its first
+    :func:`load` took (``s``, its ``nvcc`` build included) and whether it
+    was built then (``built``) or found in the build directory."""
+    with _lock:
+        return {k: dict(v) for k, v in _load_log.items()}
 
 
 def function(name: str, symbol: str, argtypes: Sequence):

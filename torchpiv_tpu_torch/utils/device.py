@@ -46,3 +46,31 @@ def check_no_tf32(device: torch.device) -> None:
             "TF32 is on: set torch.backends.cuda.matmul.allow_tf32 = False and "
             "torch.backends.cudnn.allow_tf32 = False before running the engine "
             "(the predictor upsample must be full float32)")
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (first card)."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def script_device(device: Union[str, torch.device, None] = None):
+    """The device of a script beside the package and the line that names
+    it: ``device``, else ``TPIV_DEVICE``, else the card, resolved by
+    :func:`resolve_device` (so without a card it raises unless the CPU was
+    asked for).  On a card TF32 is switched off, as the engine needs, and
+    the line is :func:`card_line`'s; on the CPU it is ``"cpu"``.  Returns
+    ``(torch.device, line)``."""
+    import os
+
+    dev = resolve_device(device or os.environ.get("TPIV_DEVICE") or "cuda")
+    if dev.type != "cuda":
+        return dev, "cpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dev, card_line()
