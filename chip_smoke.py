@@ -160,7 +160,28 @@ Phases, each failing loudly:
    ``examples/*_cuda.py`` through ``main`` on the card and their ``run``
    on the card against the CPU (the parity budget; PTV phase 11's gates),
    and ``tools/degraded_campaign_cuda.py`` at its defaults (512x512, 6
-   pairs, both tiers).
+   pairs, both tiers);
+15. the per-configuration sweep, the settings A/B and the op attribution
+   (``phase_tools``): ``tools/bench_sweep_cuda.py``'s six configurations
+   at batch 8 and the headline configuration at batches 4-32 (medians of 2;
+   no ``FAILED`` row, every grid the engine's ``final_field_shape``, rows 1
+   and 3 launched), ``tools/bench_engine_ab_cuda.py`` with ``off`` against
+   ``split`` and the default against ``correlator=matmul,
+   dft_precision=default`` (masks agreeing on 98% of the windows, RMS
+   below 0.01 px), and ``tools/profile_engine_cuda.py`` for CWS and DEF
+   with one traced dispatch of 8 (the grouped device ms within 10% of the
+   same dispatch's CUDA-event ms, a group for the shift or deformation
+   kernel), on one set of 4 unique 2048x2048 pairs.
+
+Phase 3 also holds the bfloat16 and float16 window stores (``out_dtype``)
+of rows 1-3 (the bilinear shift, standard and packed, the bicubic shift and
+the deformation with both interpolations) bit for bit against their plain
+versions cast with ``.to()``, each timed beside its float32 store with the
+bound for the narrower store (``phase_store_types``; ``stores`` in the
+kernels line).  Phase 8 also runs the engines whose resampling kernels
+store bfloat16 windows (``correlator="matmul", dft_precision="default"``:
+CWS, DWS, DEF, CWS + bicubic and DEF + ``fused="split"``) against the CPU
+engine.
 
 Phase 3 also runs ``tools/shift_anatomy_cuda.py``'s six modes of the
 window-shift kernel at pass 2 (``full``, ``noshuffle`` and ``rowbyrow``
@@ -1096,6 +1117,77 @@ def phase_packed_shift(frames: torch.Tensor) -> None:
         f"{ms:.4f} ms per launch packed, {std_ms:.4f} ms standard")
 
 
+STORE_TYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def phase_store_types(frames: torch.Tensor, rows: list) -> None:
+    """The narrow window stores (``out_dtype`` bfloat16 and float16) of rows
+    1-3 at the pass-2 shape: the bilinear shift (standard and packed), the
+    bicubic shift and the deformation (both interpolations), each
+    ``torch.equal`` to its plain version's float32 result cast with
+    ``.to()``, timed over 20 launches beside its float32 store, the bound
+    recomputed for the narrower store.  Adds ``stores`` to the rows of
+    ``shift_windows``, ``shift_windows_bicubic`` and ``def_windows``."""
+    from torchpiv_tpu_torch.kernels import deform, shift
+    from torchpiv_tpu_torch.ops.deform import def_operands, def_reference
+    from torchpiv_tpu_torch.ops.packing import pack_windows, packed_width
+    from torchpiv_tpu_torch.ops.shifts import (blend_reference, blend_reference_bicubic,
+                                               shift_operands)
+
+    w, o, M = 32, 16, 2
+    n = window_count(w, o)
+    n_side = (FRAME[0] - w) // (w - o) + 1
+    dev = frames.device
+    g = torch.Generator(device="cpu").manual_seed(6)
+    vx, vy = ((torch.rand(BATCH, n, generator=g) * 48 - 24).to(dev) for _ in range(2))
+    grads = [((torch.rand(BATCH, n, generator=g) * 2 - 1) * 0.05).to(dev) for _ in range(4)]
+    kw = dict(frame_shape=FRAME, wind_size=w, overlap=o)
+    cases = []  # (row, key, launch(dtype), plain(), maps, windows, flops a pixel)
+    for interp, plain, name in (("bilinear", blend_reference, "shift_windows"),
+                                ("bicubic", blend_reference_bicubic,
+                                 "shift_windows_bicubic")):
+        ops = shift_operands(frames, vx, vy, interp=interp, **kw)
+        cases.append((name, "standard",
+                      lambda dt, ops=ops, interp=interp: shift.launch(ops, w, interp,
+                                                                      out_dtype=dt),
+                      lambda ops=ops, plain=plain: plain(ops, w), ops, 4, n * w * w,
+                      7 if interp == "bilinear" else 40))
+        if interp == "bilinear":
+            cases.append(("shift_windows", "packed",
+                          lambda dt, ops=ops: shift.launch(ops, w, packed=True, out_dtype=dt),
+                          lambda ops=ops: pack_windows(blend_reference(ops, w), n_side,
+                                                       n_side, w),
+                          ops, 4, n_side * w * packed_width(n_side, w), 7))
+    for interp in ("bilinear", "bicubic"):
+        ops = def_operands(frames, vx, vy, *grads, margin=M, interp=interp, **kw)
+        cases.append(("def_windows", interp,
+                      lambda dt, ops=ops: deform.launch(ops, w, dt),
+                      lambda ops=ops: def_reference(ops, w), ops, 8, n * w * w,
+                      14 + (24 if interp == "bilinear" else 144)))
+    by_row = {r["name"]: r for r in rows}
+    for name, key, launch, plain, ops, n_maps, n_out, flops in cases:
+        want = plain()
+        B, Hp, Wp = ops.frame.shape
+        timed = {}
+        for label, dt in (("float32", torch.float32), *STORE_TYPES.items()):
+            got = launch(dt)
+            torch.cuda.synchronize()
+            check(got.dtype == dt and torch.equal(got, want.to(dt)),
+                  f"{name} {key} {label} stores differ from the plain version's")
+            del got
+            size = torch.finfo(dt).bits // 8
+            bound, by = roofline(B * (Hp * Wp * 4 + n * n_maps * 4 + n_out * size),
+                                 B * n * w * w * flops)
+            timed[label] = {"ms": cuda_ms(lambda: launch(dt)), "bound_ms": bound,
+                            "bound_by": by}
+        del want
+        log(f"{name} {key} stores: " + ", ".join(
+            f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, {v['bound_by']})"
+            for k, v in timed.items()) + "; the narrow stores bit-equal to the plain "
+            "version cast with .to()")
+        by_row[name].setdefault("stores", {})[key] = timed
+
+
 def load_tool(path: str):
     """The module of the tool at ``path`` (relative to this script)."""
     import importlib.util
@@ -1154,6 +1246,7 @@ def phase_kernels(folder: str) -> list:
     rows.append(phase_corrfit_kernel(frames_a, frames_b))
     rows.append(phase_fused_kernel(frames_a, frames_b))
     phase_packed_shift(frames_a)
+    phase_store_types(frames_a, rows)
     rows.append(phase_shift_anatomy(frames_a))
     torch.cuda.empty_cache()
     log("kernels of the port: " + ", ".join(r["name"] for r in rows))
@@ -3182,6 +3275,11 @@ def phase_xla_paths(uniform: str, shear: str, tmp: str, kernels, kernel_profiles
 
 # ---- phase 14: the scripts beside the package ---------------------------------
 
+# the engines whose resampling kernels store bfloat16 windows (phase 8)
+BF16_STORE_PATHS = (("CWS", "uniform", {}), ("DWS", "uniform", {"multipass_mode": "DWS"}),
+                    ("DEF", "shear", {"multipass_mode": "DEF"}),
+                    ("CWS bicubic", "shear", {"cws_interp": "bicubic"}),
+                    ("DEF fused=split", "shear", {"multipass_mode": "DEF", "fused": "split"}))
 SUSTAINED_TOOL = "tools/sustained_run_cuda.py"
 COLDSTART_TOOL = "tools/coldstart_cuda.py"
 ACCURACY_TOOL = "tools/accuracy_table_cuda.py"
@@ -3465,6 +3563,82 @@ def phase_scripts(tmp: str, kernels, smi: str) -> None:
     log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
 
 
+SWEEP_TOOL = "tools/bench_sweep_cuda.py"
+AB_TOOL = "tools/bench_engine_ab_cuda.py"
+PROFILE_TOOL = "tools/profile_engine_cuda.py"
+AB_PAIRS = (("off", "split"), ("auto", "correlator=matmul,dft_precision=default"))
+PROFILE_SHARE = 0.10  # grouped device ms against the CUDA events' ms
+
+
+def phase_tools(kernels, smi: str) -> None:
+    """Phase 15: the per-configuration sweep, the settings A/B and the op
+    attribution (``tools/{bench_sweep,bench_engine_ab,profile_engine}_cuda.py``)
+    at full width with cut repetitions, on one set of 4 unique pairs."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    sweep, ab, prof = (load_tool(p) for p in (SWEEP_TOOL, AB_TOOL, PROFILE_TOOL))
+    pairs = sweep.unique_pairs(FRAME)
+    log(f"phase 15: 4 unique pairs of {FRAME} in {time.perf_counter() - t0:.1f} s")
+
+    zero_counts(kernels)
+    rows = sweep.sweep_configs(dev, sweep.CONFIGS, sweep.BATCH, 2, FRAME, pairs)
+    launches = read_counts(kernels)
+    failed = [r["label"] for r in rows if "error" in r]
+    check(not failed, f"sweep: FAILED {failed}")
+    for r in rows:
+        check(r["grid"] == r["final_field_shape"],
+              f"sweep {r['label']}: grid {r['grid']} != {r['final_field_shape']}")
+    check(launches["shift_windows"] > 0 and launches["def_windows"] > 0,
+          f"sweep: launches {launches}")
+    headline_grid = next(r["final_field_shape"] for r in rows
+                         if r["label"] == "w64 o32 2xCWS")
+    log(f"sweep ({smi}), batch {sweep.BATCH}, medians of 2; launches {launches}:\n"
+        + sweep.config_table(rows) + "\n" + "\n".join(
+            f"sweep {r['label']}: compile+first {r['compile_first_s']:.2f} s, kernels "
+            f"loaded {sorted(r['kernel_loads'])}" for r in rows))
+    batches = sweep.sweep_batches(dev, sweep.BATCHES, 2, FRAME, pairs)
+    log(f"sweep batches ({smi}), w64/o32 2xCWS, medians of 2:\n"
+        "| scan batch | ms/pair | pairs/s |\n|---|---|---|\n" + "\n".join(
+            f"| {r['batch']} | {r['ms_pair']:.2f} | {r['pairs_s']:.1f} |" for r in batches))
+    torch.cuda.empty_cache()
+    log(f"phase 15 sweep done at {time.perf_counter() - t0:.1f} s")
+
+    for settings in AB_PAIRS:
+        zero_counts(kernels)
+        out = ab.ab(list(settings), dev, FRAME, ab.BATCH, "CWS", pairs)
+        launches = read_counts(kernels)
+        agreed = out["agreement"]
+        log(f"A/B {settings[0]} vs {settings[1]} ({smi}), batch {ab.BATCH}, best of 3: "
+            + ", ".join(f"{r['setting']} {r['ms_pair']:.3f} ms/pair" for r in out["runs"])
+            + f"; {json.dumps(agreed)}; launches {launches}")
+        check(agreed["mask_agree"] >= 0.98 and agreed["du_rms"] < 0.01
+              and agreed["dv_rms"] < 0.01, f"A/B {settings}: {agreed}")
+        check(all(r["fields"][0].shape[-2:] == r["final_field_shape"] for r in out["runs"]),
+              f"A/B {settings}: grids")
+        check(launches["shift_windows"] > 0, f"A/B {settings}: launches {launches}")
+        del out
+        torch.cuda.empty_cache()
+    log(f"phase 15 A/B done at {time.perf_counter() - t0:.1f} s")
+
+    for mode, group in (("CWS", "shift_windows"), ("DEF", "def_windows")):
+        zero_counts(kernels)
+        out = prof.profile_engine(dev, mode, 2, 1, FRAME, prof.BATCH, pairs=pairs)
+        launches = read_counts(kernels)
+        share = out["total_ms"] / out["event_ms"]
+        log(f"profile {mode} ({smi}), batch {prof.BATCH}, one traced dispatch; "
+            f"launches {launches}; grouped device {out['total_ms']:.3f} ms against "
+            f"{out['event_ms']:.3f} ms between the CUDA events (share {share:.4f}):"
+            + prof.report(out, 15))
+        check(abs(share - 1.0) < PROFILE_SHARE,
+              f"profile {mode}: grouped {out['total_ms']} ms vs events {out['event_ms']} ms")
+        check(out["per_group"].get(group, 0.0) > 0.0 and launches[group] > 0,
+              f"profile {mode}: no {group} group ({dict(out['per_group'])})")
+        check(out["final_field_shape"] == headline_grid, f"profile {mode}: grid")
+        del out
+        torch.cuda.empty_cache()
+    log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3564,6 +3738,10 @@ def main() -> int:
         phase_reference(shear, "CWS bicubic", cws_interp="bicubic")
         phase_reference(uniform, "CWS fused=split", fused="split")
         phase_reference(uniform, "CWS fused=on", fused="on")
+        for label, folder, kw in BF16_STORE_PATHS:
+            phase_reference({"uniform": uniform, "shear": shear}[folder],
+                            f"{label} correlator=matmul dft_precision=default",
+                            correlator="matmul", dft_precision="default", **kw)
         log(f"reference phase done at {time.perf_counter() - t_start:.1f} s")
         frames_a = first_batch(uniform)[0].float()
         phase_row_blocks(frames_a)
@@ -3583,6 +3761,8 @@ def main() -> int:
         log(f"XLA-path phase done at {time.perf_counter() - t_start:.1f} s")
         phase_scripts(tmp, KERNELS, smi)
         log(f"scripts phase done at {time.perf_counter() - t_start:.1f} s")
+        phase_tools(KERNELS, smi)
+        log(f"tools phase done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the path that runs it
     on_path = {"shift_windows": cws_launches, "shift_windows_bicubic": bicubic_launches,
                "def_windows": def_launches, "peakfit": def_launches,

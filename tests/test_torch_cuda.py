@@ -15,7 +15,13 @@ snapshot), the command line: ``tpiv-torch run`` on the card against
 the JAX engine's XLA resampling paths: the three shifts and the dense DEF
 path on the card against the CPU (within 1e-4 of a grey level), the
 engine with ``use_pallas="off"`` against the CPU engine (the parity
-budget) and the kernels' launches beyond and at their limits.  Every test
+budget) and the kernels' launches beyond and at their limits, and the
+bfloat16 and float16 window stores of the bilinear (standard and packed),
+bicubic and deformation kernels, full launches and row blocks (bit for bit
+against the plain version cast with ``.to()``), the engine with bfloat16
+stores (``correlator="matmul", dft_precision="default"``: its kernels
+launched at that store type, the fields against the CPU engine) and the
+whole-pass kernel's ``extract_mode="mxu"``.  Every test
 skips without a CUDA device.  The file imports neither JAX nor the JAX package, so it also runs
 where JAX is not installed:
 
@@ -1560,3 +1566,154 @@ def test_cuda_engine_off_matches_cpu_engine(card, kw):
     assert both.mean() > 0.5
     assert np.sqrt(np.mean((cu - pu)[both] ** 2)) < 0.01
     assert np.sqrt(np.mean((cv - pv)[both] ** 2)) < 0.01
+
+
+# ------------------------------------------------------------ store types
+
+STORES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def _shift_case(card, shape, w, o, kind, seed, batch=2):
+    H, W = shape
+    n = ((H - w) // (w - o) + 1) * ((W - w) // (w - o) + 1)
+    g = torch.Generator().manual_seed(seed)
+    frames = (torch.rand(batch, H, W, generator=g) * 255).to(card)
+    vx = torch.rand(batch, n, generator=g) * 3 * w - 1.5 * w  # past +-S = w/2
+    vy = torch.rand(batch, n, generator=g) * 3 * w - 1.5 * w
+    if kind == "integer":
+        vx, vy = vx.round(), vy.round()
+    elif kind == "mixed":
+        vx = vx.round()
+    return frames, vx.to(card), vy.to(card)
+
+
+@pytest.mark.parametrize("store", list(STORES))
+@pytest.mark.parametrize("kind", ["integer", "fractional", "mixed"])
+@pytest.mark.parametrize("interp,w", [("bilinear", w) for w in WIDTHS]
+                         + [("bicubic", w) for w in BICUBIC_WIDTHS])
+def test_narrow_shift_stores_match_plain_version(card, interp, w, kind, store):
+    """The kernels' bfloat16 and float16 stores bit for bit against the
+    plain version's float32 result cast with ``.to()``: the same float32
+    value, rounded once to nearest even at the store."""
+    o = w // 2
+    shape = _ragged_shape(w, o, per_block=8 * (32 // min(32, 1 << (w - 1).bit_length())))
+    frames, vx, vy = _shift_case(card, shape, w, o, kind, seed=w + 7)
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o, interp=interp)
+    wrapper = shift_windows_bicubic if interp == "bicubic" else shift_windows
+    before = wrapper.launches
+    got = shift_windows(frames, vx, vy, out_dtype=STORES[store], **kw)
+    want = shift_windows_reference(frames, vx, vy, **kw).to(STORES[store])
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert got.dtype == STORES[store] and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("store", list(STORES))
+@pytest.mark.parametrize("kind", ["integer", "fractional"])
+@pytest.mark.parametrize("shape,w,o", [((128, 112), 32, 16), ((200, 264), 64, 32),
+                                       ((40, 52), 4, 2)])
+def test_narrow_packed_stores_match_plain_version(card, shape, w, o, kind, store):
+    frames, vx, vy = _shift_case(card, shape, w, o, kind, seed=w + 11)
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o)
+    R = (shape[0] - w) // (w - o) + 1
+    C = (shape[1] - w) // (w - o) + 1
+    got = shift_windows(frames, vx, vy, packed=True, out_dtype=STORES[store], **kw)
+    want = pack_windows(shift_windows_reference(frames, vx, vy, **kw), R, C, w)
+    torch.cuda.synchronize()
+    assert got.dtype == STORES[store] and torch.equal(got, want.to(STORES[store]))
+
+
+@pytest.mark.parametrize("store", list(STORES))
+@pytest.mark.parametrize("kind", ["general", "saturating", "integer"])
+@pytest.mark.parametrize("interp", ["bilinear", "bicubic"])
+@pytest.mark.parametrize("w,margin", DEF_CASES)
+def test_narrow_def_stores_match_plain_version(card, w, margin, interp, kind, store):
+    if w == 120 and interp == "bilinear":
+        margin = 4  # the largest tile: 120 + 8 + 1 = 129
+    o = w // 2
+    shape = _ragged_shape(w, o, per_block=BLOCK_WINDOWS)
+    frames, vx, vy = _shift_case(card, shape, w, o, kind, seed=w + margin + 3)
+    slope = {"general": 0.05, "saturating": 0.6, "integer": 0.0}[kind]
+    g = torch.Generator().manual_seed(w)
+    grads = [((torch.rand(*vx.shape, generator=g) * 2 - 1) * slope).to(card)
+             for _ in range(4)]
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o, margin=margin, interp=interp)
+    before = def_windows.launches
+    got = def_windows(frames, vx, vy, *grads, out_dtype=STORES[store], **kw)
+    want = def_windows_reference(frames, vx, vy, *grads, **kw).to(STORES[store])
+    torch.cuda.synchronize()
+    assert def_windows.launches == before + 1
+    assert got.dtype == STORES[store] and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("store", list(STORES))
+@pytest.mark.parametrize("kernel", ["bilinear", "bicubic", "def"])
+def test_narrow_row_block_stores_match_the_full_launch(card, kernel, store):
+    shape, w, o = (160, 136), 32, 16
+    R, C = (shape[0] - w) // (w - o) + 1, (shape[1] - w) // (w - o) + 1
+    frames, vx, vy = _shift_case(card, shape, w, o, "fractional", seed=5)
+    grads = [torch.full_like(vx, 0.02) for _ in range(4)]
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o, out_dtype=STORES[store])
+    if kernel == "def":
+        call = lambda a, b, **k: def_windows(frames, a, b, *(g[:, :a.shape[1]] for g in grads),
+                                             **kw, **k)
+    else:
+        call = lambda a, b, **k: shift_windows(frames, a, b, interp=kernel, **kw, **k)
+    full = call(vx, vy)
+    for r0, n in ((0, 3), (3, 4), (R - 2, 2)):
+        rows = slice(r0 * C, (r0 + n) * C)
+        block = call(vx[:, rows], vy[:, rows], row_start=r0, n_rows_local=n)
+        torch.cuda.synchronize()
+        assert torch.equal(block, full[:, rows])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(multipass_mode="CWS"), dict(multipass_mode="DWS"), dict(multipass_mode="DEF"),
+    dict(multipass_mode="DEF", cws_interp="bicubic"),
+    dict(multipass_mode="CWS", cws_interp="bicubic"),
+    dict(multipass_mode="CWS", fused="split"), dict(multipass_mode="DEF", fused="split"),
+    dict(multipass_mode="CWS", dtype="bfloat16"),
+], ids=lambda kw: "-".join(kw.values()))
+def test_cuda_engine_stores_bfloat16_windows(card, kw, monkeypatch):
+    """Under ``correlator="matmul", dft_precision="default"`` the engine's
+    resampling kernels store bfloat16 where the JAX engine asks for it (the
+    launch itself, no cast after a float32 launch), and the fields match the
+    CPU engine within the parity budget."""
+    from torchpiv_tpu_torch.kernels import deform as deform_mod
+    from torchpiv_tpu_torch.kernels import shift as shift_mod
+
+    stored = []
+    for mod in (shift_mod, deform_mod):
+        def spy(*a, _real=mod.launch, **k):
+            out = _real(*a, **k)
+            stored.append(out.dtype)
+            return out
+        monkeypatch.setattr(mod, "launch", spy)
+    flow = shear_flow(1.0, 0.01) if kw["multipass_mode"] == "DEF" else (3.3, -2.1)
+    fa, fb = particle_pair((512, 512), flow, seed=9)
+    cfg = PIVConfig(frame_shape=(512, 512), wind_size=64, overlap=32, multipass=2,
+                    correlator="matmul", dft_precision="default", **kw)
+    fa, fb = torch.from_numpy(fa), torch.from_numpy(fb)
+    cu, cv, ci = (t.cpu().numpy() for t in MultipassPIV(cfg, device=card)(fa, fb))
+    split_bilinear = kw.get("fused") == "split" and kw["multipass_mode"] == "CWS"
+    want = torch.float32 if split_bilinear else torch.bfloat16
+    assert stored and set(stored) == {want}
+    pu, pv, pi = (t.numpy() for t in MultipassPIV(cfg, device="cpu")(fa, fb))
+    assert np.mean(ci != pi) < 0.02
+    both = ~(ci | pi)
+    assert np.sqrt(np.mean((cu - pu)[both] ** 2)) < 0.01
+    assert np.sqrt(np.mean((cv - pv)[both] ** 2)) < 0.01
+
+
+def test_fused_pass_mxu_extraction_is_rolls_on_8bit_frames(card):
+    fa, fb = particle_pair((256, 320), (3.3, -2.1), seed=4)
+    shape, w, o = (256, 320), 32, 16
+    n = ((shape[0] - w) // (w - o) + 1) * ((shape[1] - w) // (w - o) + 1)
+    g = torch.Generator().manual_seed(2)
+    maps = [(torch.rand(n, generator=g) * 6 - 3).to(card) for _ in range(4)]
+    a, b = torch.from_numpy(fa).to(card), torch.from_numpy(fb).to(card)
+    kw = dict(frame_shape=shape, wind_size=w, overlap=o)
+    rolls = fused_piv_pass(a, b, *maps, **kw)
+    mxu = fused_piv_pass(a, b, *maps, extract_mode="mxu", **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(rolls, mxu))

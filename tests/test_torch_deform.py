@@ -117,7 +117,7 @@ def test_wrapper_takes_plain_version_on_cpu():
 @pytest.mark.parametrize("bad", [
     dict(wind_size=126, overlap=2),  # 126 + 4 + 1 > 129
     dict(wind_size=122, overlap=2, interp="bicubic"),  # 122 + 4 + 4 > 129
-    dict(margin=0), dict(interp="lanczos"), dict(out_dtype=torch.bfloat16)])
+    dict(margin=0), dict(interp="lanczos"), dict(out_dtype=torch.int32)])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     kw = dict(frame_shape=(256, 256), wind_size=32, overlap=16)
     kw.update(bad)

@@ -77,7 +77,8 @@ SCRIPTS = ["examples/demo_cuda.py", "examples/postprocess_demo_cuda.py",
            "examples/dense_demo_cuda.py", "examples/tracking_pressure_demo_cuda.py",
            "examples/sharded_demo_cuda.py", "tools/sustained_run_cuda.py",
            "tools/coldstart_cuda.py", "tools/accuracy_table_cuda.py",
-           "tools/degraded_campaign_cuda.py"]
+           "tools/degraded_campaign_cuda.py", "tools/bench_sweep_cuda.py",
+           "tools/bench_engine_ab_cuda.py", "tools/profile_engine_cuda.py"]
 
 SCRIPT_CHILD = r"""
 import importlib, importlib.util, json, sys

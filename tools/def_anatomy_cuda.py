@@ -32,6 +32,7 @@ a card.
 from __future__ import annotations
 
 import importlib.util
+import re
 import shutil
 import subprocess
 import sys
@@ -110,10 +111,11 @@ def build(modes) -> dict:
 
 def instance_summary(log: str, cubic: bool) -> dict:
     """``ptxas_summary`` of the bilinear (``cubic=False``) or the bicubic
-    instance's part of a ``ptxas -v`` log."""
+    instance's part of a ``ptxas -v`` log (the float32 store's,
+    ``kernel<cubic, float>``, where the kernel has a store type)."""
     name = f"def_windows_kernelILb{int(cubic)}"
     for part in log.split("Compiling entry function")[1:]:
-        if name in part.splitlines()[0]:
+        if re.search(name + "E(f)?E", part.splitlines()[0]):
             return base.ptxas_summary(part)
     raise RuntimeError(f"ptxas reported no {name}")
 

@@ -74,9 +74,10 @@ def edited_copy(name: str, depth: int) -> Path:
 
 
 def one_column_summary(log: str) -> dict:
-    """``ptxas_summary`` of the one-column instance (``kernel<1>``)."""
+    """``ptxas_summary`` of the one-column instance (``kernel<1>``; the
+    bicubic kernel's with its float32 store, ``kernel<1, float>``)."""
     for part in log.split("Compiling entry function")[1:]:
-        if "_kernelILi1EE" in part.splitlines()[0]:
+        if re.search(r"_kernelILi1E(f)?E", part.splitlines()[0]):
             return base.ptxas_summary(part)
     raise RuntimeError("ptxas reported no one-column instance")
 

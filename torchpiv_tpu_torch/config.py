@@ -5,8 +5,15 @@ field names, defaults, ``pass_schedule()`` and validation, so a JAX config
 converts one to one (``from_dict``).
 
 Knobs whose only effect is a TPU lowering are accepted and do nothing here:
-``shift_maps``, ``extract_variant``, ``complex_mm``, ``correlator`` and
-``dft_precision``.  ``shift_variant`` is live: it selects the bilinear shift
+``shift_maps``, ``extract_variant`` and ``complex_mm``.  ``correlator`` and
+``dft_precision`` pick no correlator: the port correlates through
+``torch.fft`` or its pass-fusion kernels.  Together they are live for one
+rounding: ``correlator="matmul"`` with ``dft_precision="default"`` (and no
+``window_weight``) stores the refine passes' resampled windows in bfloat16,
+as the JAX engine's ``_window_store_dtype`` asks its kernels to (the TPU's
+single-pass bfloat16 DFT rounds them so; ``MultipassPIV``).  ``"auto"``
+never means the matmul DFT here, as in the JAX engine off the TPU.
+``shift_variant`` is live: it selects the bilinear shift
 kernel of the CWS and DWS passes (``kernels/shift.py``), and a name that is
 none of the five runs ``"rolls"``, as in the JAX engine.
 The port always correlates in float32, through ``torch.fft`` or inside its
@@ -44,8 +51,9 @@ The robust-correlation and validation knobs (``window_weight``,
 ``second_peak_fallback``) are live, with the JAX twin's cross-checks.
 
 ``dtype`` casts where the JAX engine casts (``compute_dtype`` names the
-element type; the kernels themselves compute and store float32, as the TPU
-kernels do after their cast on entry):
+element type; the kernels themselves compute in float32, as the TPU
+kernels do after their cast on entry, and store float32 unless the window
+store type above is bfloat16, whatever ``dtype`` is):
 
 * the spline upsample operators and both predictor matmuls of a refine
   pass are in that type (so are the predictor and its half-shift);
@@ -129,10 +137,10 @@ class PIVConfig:
     max_shift: Optional[int] = None  # shift clamp, default wind // 2
     shift_variant: str = "rolls"  # "rolls" | "bf16" | "lanephases" | "mxu" | "phases"
     shift_maps: str = "rows"  # TPU lowering only: no effect
-    correlator: str = "auto"  # TPU lowering only: always f32 torch.fft
+    correlator: str = "auto"  # torch.fft always; "matmul": see dft_precision
     peakfit: str = "xla"  # "xla" (torch ops) | "pallas" (fused kernel)
     subpixel: str = "gauss3"  # "gauss3" | "gauss2d" (torch-op fit only)
-    dft_precision: str = "high"  # TPU lowering only: always f32 torch.fft
+    dft_precision: str = "high"  # "default" + "matmul": bfloat16 window stores
     complex_mm: str = "real"  # TPU lowering only: no effect
     fused: str = "auto"  # "auto" | "off" | "split" | "on" (pass fusion)
     median_filter: Optional[str] = None  # None | "median" | "normmedian"

@@ -59,7 +59,12 @@
 // * each Keys weight evaluates the piece that the tap's position fixes
 //   (`keys_tap`), without a branch or a select, to the same bits;
 // * a row's four pixels go out as one 16-byte store where w % 4 == 0
-//   (streaming, so the windows do not evict the frame from L2).
+//   (8 bytes in a 16-bit store type; streaming, so the windows do not
+//   evict the frame from L2).
+//
+// The output element type is a template parameter: float, or bfloat16 or
+// half rounded at the store (the TPU kernel's `out_dtype`, store.cuh),
+// which halves the windows' bytes (bilinear: about 15 us a frame).
 //
 // Numerics: ry decides floor(ry) and ry == floor(ry), so a contracted
 // multiply-add would move pixels between cells.  The residual, the weights
@@ -68,6 +73,7 @@
 // PyTorch version to the last bit.
 
 #include "shift.cuh"
+#include "store.cuh"
 
 namespace {
 
@@ -186,14 +192,14 @@ int tile_side(int w, int M, bool cubic) { return w + 2 * M + (cubic ? 4 : 1); }
 // (w32 bicubic: T = 40 put four rows' taps in the same eight banks).
 __host__ __device__ int tile_pitch(int T) { return T | 1; }
 
-template <bool kCubic>
+template <bool kCubic, typename Out>
 __global__ void __launch_bounds__(kThreads, 6)
 def_windows_kernel(const float* __restrict__ frame,
                    const int* __restrict__ dy, const int* __restrict__ dx,
                    const float* __restrict__ fy, const float* __restrict__ fx,
                    const float* __restrict__ gyi, const float* __restrict__ gyj,
                    const float* __restrict__ gxi, const float* __restrict__ gxj,
-                   float* __restrict__ out,
+                   Out* __restrict__ out,
                    int Hp, int Wp, int n_rows, int n_cols,
                    int w, int step, int off, int row_start, int M, int Q,
                    int R) {
@@ -265,7 +271,7 @@ def_windows_kernel(const float* __restrict__ frame,
         col_y[jj] = __fmul_rn(gyj_, joff);
         col_x[jj] = __fmul_rn(gxj_, joff);
       }
-      float* dst = out + wi * w * w + 4 * q;
+      Out* dst = out + wi * w * w + 4 * q;
       for (int pi = p0; pi < w; pi += R) {
         const float ioff = __fsub_rn((float)pi, half);
         // the row-invariant parts: by + gyi*ioff and bx + gxi*ioff
@@ -283,12 +289,11 @@ def_windows_kernel(const float* __restrict__ frame,
           }
         }
         if (vec) {
-          __stcs(reinterpret_cast<float4*>(dst + pi * w),
-                 make_float4(px[0], px[1], px[2], px[3]));
+          piv::store4_cs(dst + pi * w, px);
         } else {
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj)
-            if (4 * q + jj < w) __stcs(dst + pi * w + jj, px[jj]);
+            if (4 * q + jj < w) piv::store_cs(dst + pi * w + jj, px[jj]);
         }
       }
     }
@@ -296,29 +301,16 @@ def_windows_kernel(const float* __restrict__ frame,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// frame: [B, Hp, Wp] f32; dy, dx: [B, N] i32; fy, fx and the four gradient
-// maps: [B, N] f32; out: [B, N, w, w] f32 with N = n_rows * n_cols.  The
-// tile side w + 2M + (4 | 1) is at most 129.  Launches on `stream` and
-// returns cudaGetLastError() of the launch (0 on success).
-// The launch serves window rows row_start .. row_start + n_rows - 1 of the
-// grid (the maps and out hold just those rows; 0 and all rows for the whole
-// grid); frame is the whole padded frame and a window's origin row is
-// (row_start + r) * step + off.
-int def_windows_f32(const float* frame, const int* dy, const int* dx,
-                    const float* fy, const float* fx,
-                    const float* gyi, const float* gyj,
-                    const float* gxi, const float* gxj, float* out,
-                    int B, int Hp, int Wp, int n_rows, int n_cols,
-                    int w, int step, int off, int row_start, int M, int cubic,
-                    void* stream) {
+template <typename Out>
+int launch(const float* frame, const int* dy, const int* dx, const float* fy,
+           const float* fx, const float* gyi, const float* gyj,
+           const float* gxi, const float* gxj, Out* out, int B, int Hp, int Wp,
+           int n_rows, int n_cols, int w, int step, int off, int row_start,
+           int M, int cubic, cudaStream_t stream) {
   const int T = tile_side(w, M, cubic);
   if (w < 1 || M < 1 || T > 129) return (int)cudaErrorInvalidValue;
   const size_t smem = kStages * (size_t)T * tile_pitch(T) * sizeof(float);
-  auto kernel = cubic ? def_windows_kernel<true> : def_windows_kernel<false>;
+  auto kernel = cubic ? def_windows_kernel<true, Out> : def_windows_kernel<false, Out>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -326,11 +318,39 @@ int def_windows_f32(const float* frame, const int* dy, const int* dx,
   }
   const Geometry g = geometry_for(w);
   dim3 grid((n_cols + kWindows - 1) / kWindows, n_rows, B);
-  kernel<<<grid, g.threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, g.threads, smem, stream>>>(
       frame, dy, dx, fy, fx, gyi, gyj, gxi, gxj, out,
       Hp, Wp, n_rows, n_cols, w, step, off, row_start, M, g.Q, g.R);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+extern "C" {
+
+// frame: [B, Hp, Wp] f32; dy, dx: [B, N] i32; fy, fx and the four gradient
+// maps: [B, N] f32; out: [B, N, w, w] with N = n_rows * n_cols, in the
+// entry point's store type (`def_windows_f32`: float; `_store_bf16`,
+// `_store_f16`: the float32 result rounded to nearest even).  The tile side
+// w + 2M + (4 | 1) is at most 129.  Launches on `stream` and returns
+// cudaGetLastError() of the launch (0 on success).
+// The launch serves window rows row_start .. row_start + n_rows - 1 of the
+// grid (the maps and out hold just those rows; 0 and all rows for the whole
+// grid); frame is the whole padded frame and a window's origin row is
+// (row_start + r) * step + off.
+#define PIV_DEF_WINDOWS(SUFFIX, TYPE)                                          \
+  int def_windows_##SUFFIX(const float* frame, const int* dy, const int* dx,   \
+                           const float* fy, const float* fx,                   \
+                           const float* gyi, const float* gyj,                 \
+                           const float* gxi, const float* gxj, TYPE* out,      \
+                           int B, int Hp, int Wp, int n_rows, int n_cols,      \
+                           int w, int step, int off, int row_start, int M,     \
+                           int cubic, void* stream) {                          \
+    return launch(frame, dy, dx, fy, fx, gyi, gyj, gxi, gxj, out, B, Hp, Wp,   \
+                  n_rows, n_cols, w, step, off, row_start, M, cubic,           \
+                  (cudaStream_t)stream);                                       \
+  }
+PIV_STORE_TYPES(PIV_DEF_WINDOWS)
 
 // out[0..4]: registers a thread, bytes of local memory a thread (spills and
 // stack), bytes of shared memory a block, threads a block, windows a block
@@ -341,7 +361,7 @@ int def_windows_describe(int w, int M, int cubic, int* out) {
   if (w < 1 || M < 1 || T > 129) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const cudaError_t e = cudaFuncGetAttributes(
-      &attr, cubic ? def_windows_kernel<true> : def_windows_kernel<false>);
+      &attr, cubic ? def_windows_kernel<true, float> : def_windows_kernel<false, float>);
   if (e != cudaSuccess) return (int)e;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;

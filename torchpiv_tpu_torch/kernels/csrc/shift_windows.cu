@@ -15,6 +15,8 @@
 // writes N*w*w*4 = 66.1 MB and reads the 2080^2*4 = 17.3 MB padded frame
 // plus 4 maps of N*4 bytes, about 83.7 MB: about 25 us at 3.35 TB/s.  The
 // blend is 7 flops a pixel (0.12 GFLOP), far below the card's f32 rate.
+// With a bfloat16 or half store (the TPU kernel's `out_dtype`, store.cuh)
+// the windows take N*w*w*2 = 33.0 MB, about 50.6 MB a frame: about 15 us.
 //
 // What the design does about the bound.  The window's stores (the largest
 // stream) must run at the memory rate, so every other part of the work has
@@ -46,12 +48,17 @@
 // repeating the last window.  The port's own kernels read [N, w, w]; the
 // layout exists to be held against the JAX functions that speak it.
 //
+// The output element type is a template parameter: float, or bfloat16 or
+// half rounded at the store (store.cuh); everything before the store is
+// float32 whatever the type.
+//
 // The blend and its numerics are shift.cuh's (`blend_weights`,
 // `blend_corners`), shared with fused_pass.cu and the shift variants: the
 // result matches the plain PyTorch version to the last bit, and integer
 // shifts copy tile values.
 
 #include "shift.cuh"
+#include "store.cuh"
 
 namespace {
 
@@ -121,14 +128,14 @@ __device__ __forceinline__ void right_neighbours(const float (&v)[K + 1],
   }
 }
 
-template <int K>
+template <int K, typename Out>
 __global__ void __launch_bounds__(kWarps * 32, min_blocks<K>())
 shift_windows_kernel(const float* __restrict__ frame,
                      const int* __restrict__ dy,
                      const int* __restrict__ dx,
                      const float* __restrict__ fy,
                      const float* __restrict__ fx,
-                     float* __restrict__ out,
+                     Out* __restrict__ out,
                      int Hp, int Wp, int n_rows, int n_cols, int w, int step,
                      int off, int row_start, int lg, int packed,
                      int n_cols_pad) {
@@ -148,8 +155,8 @@ shift_windows_kernel(const float* __restrict__ frame,
   const float* src = frame + ((int64_t)b * Hp + ty) * Wp + tx;
   const piv::Blend blend = piv::blend_weights(fy[wi], fx[wi]);
 
-  float* dst;
-  int64_t pitch;  // floats from one output row to the next
+  Out* dst;
+  int64_t pitch;  // elements from one output row to the next
   int copies = 1;
   if (!packed) {
     dst = out + wi * w * w;
@@ -183,7 +190,7 @@ shift_windows_kernel(const float* __restrict__ frame,
         const float val = piv::blend_corners(top[k], top_right[k], below[u][k],
                                              below_right[k], blend);
         if (live && j < w)
-          for (int q = 0; q < copies; ++q) __stcs(dst + i * pitch + q * w + j, val);
+          for (int q = 0; q < copies; ++q) piv::store_cs(dst + i * pitch + q * w + j, val);
       }
 #pragma unroll
       for (int k = 0; k < K; ++k) {
@@ -195,14 +202,14 @@ shift_windows_kernel(const float* __restrict__ frame,
   }
 }
 
-template <int K>
+template <int K, typename Out>
 int launch(const float* frame, const int* dy, const int* dx, const float* fy,
-           const float* fx, float* out, int B, int Hp, int Wp, int n_rows,
+           const float* fx, Out* out, int B, int Hp, int Wp, int n_rows,
            int n_cols, int w, int step, int off, int row_start, int packed,
            int n_cols_pad, const Lanes& l, cudaStream_t stream) {
   const int per_block = kWarps * l.P;  // windows a block
   dim3 grid((n_cols + per_block - 1) / per_block, n_rows, B);
-  shift_windows_kernel<K><<<grid, kWarps * 32, 0, stream>>>(
+  shift_windows_kernel<K, Out><<<grid, kWarps * 32, 0, stream>>>(
       frame, dy, dx, fy, fx, out, Hp, Wp, n_rows, n_cols, w, step, off,
       row_start, l.lg, packed, n_cols_pad);
   return (int)cudaGetLastError();
@@ -211,7 +218,7 @@ int launch(const float* frame, const int* dy, const int* dx, const float* fy,
 template <int K>
 int describe(const Lanes& l, int* out) {
   cudaFuncAttributes attr;
-  const cudaError_t e = cudaFuncGetAttributes(&attr, shift_windows_kernel<K>);
+  const cudaError_t e = cudaFuncGetAttributes(&attr, shift_windows_kernel<K, float>);
   if (e != cudaSuccess) return (int)e;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
@@ -236,24 +243,28 @@ int describe(const Lanes& l, int* out) {
 extern "C" {
 
 // frame: [B, Hp, Wp] f32; dy, dx: [B, N] i32; fy, fx: [B, N] f32;
-// out: [B, N, w, w] f32 with N = n_rows * n_cols, or with `packed`
-// [B, n_rows, w, n_cols_pad * w].  w in 1..128.  Launches on `stream` and
+// out: [B, N, w, w] with N = n_rows * n_cols, or with `packed`
+// [B, n_rows, w, n_cols_pad * w], in the entry point's store type
+// (`shift_windows_f32`: float; `_store_bf16`, `_store_f16`: the float32
+// result rounded to nearest even).  w in 1..128.  Launches on `stream` and
 // returns cudaGetLastError() of the launch (0 on success).
 // The launch serves window rows row_start .. row_start + n_rows - 1 of the
 // grid (the maps and out hold just those rows; 0 and all rows for the whole
 // grid); frame is the whole padded frame and a window's origin row is
 // (row_start + r) * step + off.
-int shift_windows_f32(const float* frame, const int* dy, const int* dx,
-                      const float* fy, const float* fx, float* out,
-                      int B, int Hp, int Wp, int n_rows, int n_cols,
-                      int w, int step, int off, int row_start, int packed,
-                      int n_cols_pad, void* stream) {
-  if (w < 1 || w > 128) return (int)cudaErrorInvalidValue;
-  const Lanes l = lanes_for(w);
-  PIV_FOR_COLUMNS(l.K, launch, frame, dy, dx, fy, fx, out, B, Hp, Wp, n_rows,
-                  n_cols, w, step, off, row_start, packed, n_cols_pad, l,
-                  (cudaStream_t)stream);
-}
+#define PIV_SHIFT_WINDOWS(SUFFIX, TYPE)                                        \
+  int shift_windows_##SUFFIX(const float* frame, const int* dy, const int* dx, \
+                             const float* fy, const float* fx, TYPE* out,      \
+                             int B, int Hp, int Wp, int n_rows, int n_cols,    \
+                             int w, int step, int off, int row_start,          \
+                             int packed, int n_cols_pad, void* stream) {       \
+    if (w < 1 || w > 128) return (int)cudaErrorInvalidValue;                   \
+    const Lanes l = lanes_for(w);                                              \
+    PIV_FOR_COLUMNS(l.K, launch, frame, dy, dx, fy, fx, out, B, Hp, Wp,        \
+                    n_rows, n_cols, w, step, off, row_start, packed,           \
+                    n_cols_pad, l, (cudaStream_t)stream);                      \
+  }
+PIV_STORE_TYPES(PIV_SHIFT_WINDOWS)
 
 // out[0..4]: registers a thread, bytes of local memory a thread (spills and
 // stack), bytes of shared memory a block, threads a block, windows a block

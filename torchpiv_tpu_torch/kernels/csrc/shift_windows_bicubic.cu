@@ -19,7 +19,9 @@
 // writes N*w*w*4 = 66.1 MB and reads the 2084^2*4 = 17.4 MB padded frame
 // plus 4 maps of N*4 bytes: about 25 us at 3.35 TB/s.  The stencil as the
 // plain version writes it is 40 operations a pixel (0.66 GFLOP a frame,
-// 10 us at the f32 rate), below the byte time.
+// 10 us at the f32 rate), below the byte time.  A bfloat16 or half store
+// (the TPU kernel's `out_dtype`; the output element type is a template
+// parameter, store.cuh) halves the windows' bytes: about 15 us a frame.
 //
 // What the design does about the bound.  The stores, the largest stream,
 // must run at the memory rate, so everything else has to cost fewer
@@ -50,6 +52,7 @@
 // multiply-add is contracted and the result matches the plain PyTorch
 // version to the last bit.
 
+#include "store.cuh"
 #include "warp_lanes.cuh"
 
 namespace {
@@ -103,14 +106,14 @@ __device__ __forceinline__ float taps(const float (&w)[4], float a, float b,
   return __fadd_rn(acc, __fmul_rn(w[3], d));
 }
 
-template <int K>
+template <int K, typename Out>
 __global__ void __launch_bounds__(kWarps * 32, min_blocks<K>())
 shift_windows_bicubic_kernel(const float* __restrict__ frame,
                              const int* __restrict__ dy,
                              const int* __restrict__ dx,
                              const float* __restrict__ fy,
                              const float* __restrict__ fx,
-                             float* __restrict__ out,
+                             Out* __restrict__ out,
                              int Hp, int Wp, int n_rows, int n_cols, int w,
                              int step, int off, int row_start, int lg) {
   const int G = 1 << lg;
@@ -132,7 +135,7 @@ shift_windows_bicubic_kernel(const float* __restrict__ frame,
   float wy[4], wx[4];
   cubic_weights(fy[wi], wy);
   cubic_weights(fx[wi], wx);
-  float* dst = out + wi * w * w;
+  Out* dst = out + wi * w * w;
 
   float h[4][K];  // the ring: h[r & 3] holds tile row r's horizontal sums
   constexpr int kRows = rows_ahead<K>();
@@ -159,20 +162,20 @@ shift_windows_bicubic_kernel(const float* __restrict__ frame,
         const int j = c + G * k;
         const float val = taps(wy, h[(u + 1) & 3][k], h[(u + 2) & 3][k],
                                h[(u + 3) & 3][k], h[u & 3][k]);
-        if (live && j < w) __stcs(dst + i * w + j, val);
+        if (live && j < w) piv::store_cs(dst + i * w + j, val);
       }
     }
   }
 }
 
-template <int K>
+template <int K, typename Out>
 int launch(const float* frame, const int* dy, const int* dx, const float* fy,
-           const float* fx, float* out, int B, int Hp, int Wp, int n_rows,
+           const float* fx, Out* out, int B, int Hp, int Wp, int n_rows,
            int n_cols, int w, int step, int off, int row_start, const Lanes& l,
            cudaStream_t stream) {
   const int per_block = kWarps * l.P;  // windows a block
   dim3 grid((n_cols + per_block - 1) / per_block, n_rows, B);
-  shift_windows_bicubic_kernel<K><<<grid, kWarps * 32, 0, stream>>>(
+  shift_windows_bicubic_kernel<K, Out><<<grid, kWarps * 32, 0, stream>>>(
       frame, dy, dx, fy, fx, out, Hp, Wp, n_rows, n_cols, w, step, off,
       row_start, l.lg);
   return (int)cudaGetLastError();
@@ -182,7 +185,7 @@ template <int K>
 int describe(const Lanes& l, int* out) {
   cudaFuncAttributes attr;
   const cudaError_t e =
-      cudaFuncGetAttributes(&attr, shift_windows_bicubic_kernel<K>);
+      cudaFuncGetAttributes(&attr, shift_windows_bicubic_kernel<K, float>);
   if (e != cudaSuccess) return (int)e;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
@@ -200,22 +203,25 @@ constexpr int kMaxWind = 128;  // four columns a lane
 extern "C" {
 
 // frame: [B, Hp, Wp] f32; dy, dx: [B, N] i32; fy, fx: [B, N] f32;
-// out: [B, N, w, w] f32 with N = n_rows * n_cols.  w in 1..128.  Launches
-// on `stream` and returns cudaGetLastError() of the launch (0 on success).
+// out: [B, N, w, w] with N = n_rows * n_cols, in the entry point's store
+// type (`_f32`: float; `_store_bf16`, `_store_f16`: the float32 result
+// rounded to nearest even).  w in 1..128.  Launches on `stream` and
+// returns cudaGetLastError() of the launch (0 on success).
 // The launch serves window rows row_start .. row_start + n_rows - 1 of the
 // grid (the maps and out hold just those rows; 0 and all rows for the whole
 // grid); frame is the whole padded frame and a window's origin row is
 // (row_start + r) * step + off.
-int shift_windows_bicubic_f32(const float* frame, const int* dy, const int* dx,
-                              const float* fy, const float* fx, float* out,
-                              int B, int Hp, int Wp, int n_rows, int n_cols,
-                              int w, int step, int off, int row_start,
-                              void* stream) {
-  if (w < 1 || w > kMaxWind) return (int)cudaErrorInvalidValue;
-  const Lanes l = piv::warp::lanes_for(w, kReach);
-  PIV_FOR_SLOTS(l.K, launch, frame, dy, dx, fy, fx, out, B, Hp, Wp, n_rows,
-                n_cols, w, step, off, row_start, l, (cudaStream_t)stream);
-}
+#define PIV_SHIFT_WINDOWS_BICUBIC(SUFFIX, TYPE)                               \
+  int shift_windows_bicubic_##SUFFIX(                                         \
+      const float* frame, const int* dy, const int* dx, const float* fy,      \
+      const float* fx, TYPE* out, int B, int Hp, int Wp, int n_rows,          \
+      int n_cols, int w, int step, int off, int row_start, void* stream) {    \
+    if (w < 1 || w > kMaxWind) return (int)cudaErrorInvalidValue;             \
+    const Lanes l = piv::warp::lanes_for(w, kReach);                          \
+    PIV_FOR_SLOTS(l.K, launch, frame, dy, dx, fy, fx, out, B, Hp, Wp, n_rows, \
+                  n_cols, w, step, off, row_start, l, (cudaStream_t)stream);  \
+  }
+PIV_STORE_TYPES(PIV_SHIFT_WINDOWS_BICUBIC)
 
 // out[0..4]: registers a thread, bytes of local memory a thread (spills and
 // stack), bytes of shared memory a block, threads a block, windows a block

@@ -5,7 +5,11 @@ For CPU tensors it runs the plain PyTorch version
 (``ops.deform.def_reference``); for CUDA tensors it launches the kernel on
 the current stream or raises.  ``def_windows.launches`` counts launches.
 ``row_start``/``n_rows_local`` run it on a block of window rows, as the TPU
-kernel takes ``row0`` by scalar prefetch.
+kernel takes ``row0`` by scalar prefetch.  ``out_dtype`` (float32,
+bfloat16 or float16) is the element type of the kernel's stores, as in the
+TPU wrapper: it computes in float32 and rounds only at the store
+(``csrc/store.cuh``), so the plain version is the float32 result cast with
+``.to(out_dtype)``.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch
 
 from ..ops.deform import DefOperands, def_operands, def_reference
 from . import _build
+from .shift import STORE_SYMBOLS, check_store
 
 
 MAX_DEF_TILE = 129  # the TPU kernel's limit on the tile side
@@ -53,15 +58,16 @@ def check_tile(wind_size: int, margin: int, interp: str) -> None:
                          f"{MAX_DEF_TILE}")
 
 
-def launch(ops: DefOperands, wind_size: int) -> torch.Tensor:
+def launch(ops: DefOperands, wind_size: int,
+           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Launch the kernel on CUDA ``DefOperands`` -> ``[B, N, w, w]``, over
-    the operands' window rows."""
+    the operands' window rows, stored in ``out_dtype``."""
     B, Hp, Wp = ops.frame.shape
     dev = ops.frame.device
     out = torch.empty((B, ops.n_rows * ops.n_cols, wind_size, wind_size),
-                      dtype=torch.float32, device=dev)
+                      dtype=out_dtype, device=dev)
     fn = _build.function(
-        "def_windows", "def_windows_f32",
+        "def_windows", f"def_windows_{STORE_SYMBOLS[out_dtype]}",
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     with torch.cuda.device(dev):
         rc = fn(ops.frame.data_ptr(), ops.dy.data_ptr(), ops.dx.data_ptr(),
@@ -96,7 +102,7 @@ def def_windows(
     row_start: int = 0,
     n_rows_local: Optional[int] = None,
 ) -> torch.Tensor:
-    """Deformed windows ``[B, N, w, w]`` float32 from ``[B, H, W]`` frames,
+    """Deformed windows ``[B, N, w, w]`` in ``out_dtype`` from ``[B, H, W]`` frames,
     ``[B, N]`` per-window centre shifts in pixels and ``[B, N]`` displacement
     gradients in px per px (``[N, w, w]`` from ``[H, W]`` and ``[N]``).  The
     offset applied at a pixel is ``vel + d/dx * joff + d/dy * ioff`` with
@@ -105,8 +111,7 @@ def def_windows(
     ``row_start``/``n_rows_local`` select a block of window rows (the maps
     are then ``[B, n_rows_local * n_cols]``)."""
     check_tile(wind_size, margin, interp)
-    if out_dtype != torch.float32:
-        raise ValueError(f"def_windows stores float32 only, not {out_dtype}")
+    check_store("def_windows", out_dtype)
     if frame.device.type not in ("cpu", "cuda"):
         raise ValueError(f"def_windows: unsupported device {frame.device}")
     maps = (vel_x, vel_y, dudx, dudy, dvdx, dvdy)
@@ -122,9 +127,9 @@ def def_windows(
                        flat_wrap=flat_wrap, interp=interp,
                        row_start=row_start, n_rows_local=n_rows_local)
     if frame.device.type == "cpu":
-        out = def_reference(ops, wind_size)
+        out = def_reference(ops, wind_size).to(out_dtype)  # the kernel rounds at the store
     else:
-        out = launch(ops, wind_size)
+        out = launch(ops, wind_size, out_dtype)
     return out if batched else out[0]
 
 

@@ -10,6 +10,16 @@ The frames are padded with the flat-wrap pad and the shifts clipped and
 split into floor and fraction by the same torch ops that feed
 ``shift_windows`` (``ops.shifts.shift_operands``), so the windows the kernel
 correlates are bit for bit those of ``shift_windows``.
+
+The JAX function's ``extract_mode`` and ``stub`` are taken.  ``"mxu"``
+extracts with one-hot selection products on the frame rounded to bfloat16,
+which the JAX package holds bit-exact with the roll extraction; here both
+launch the same kernel, ``"mxu"`` on the frame rounded to bfloat16 (to
+nearest even: exact for 8-bit grey levels, so equal to ``"rolls"`` there).
+``stub`` names the TPU kernel's attribution builds (parts taken out, for
+timing); ``"none"`` runs the pass, any other raises: the port's attribution
+of this kernel is ``tools/corrfit_anatomy_cuda.py anatomy`` (edited builds
+of ``csrc/corrfit.cuh``).
 """
 from __future__ import annotations
 
@@ -22,6 +32,9 @@ from ..ops.corrfit import fused_pass_reference
 from ..ops.shifts import ShiftOperands, shift_operands
 from . import _build
 from .corrfit import check_windows, twiddles
+
+# the JAX function's window extractions: both launch the one kernel here
+EXTRACT_MODES = ("rolls", "mxu")
 
 
 def launch(ops_a: ShiftOperands, ops_b: ShiftOperands, wind_size: int,
@@ -72,14 +85,24 @@ def fused_piv_pass(
     validation_window: int = 3,
     max_shift: Optional[int] = None,
     dc_normalize: bool = False,
+    stub: str = "none",
+    extract_mode: str = "rolls",
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """One whole pass: ``[B, H, W]`` frames and ``[B, N]`` per-window shifts
     of each frame in pixels (``[H, W]`` and ``[N]`` for one pair) ->
     ``(u, v, invalid)`` of the shifts' shape.  CWS passes ``-u/2`` and
     ``+u/2``, the first pass zeros with ``dc_normalize``, DWS integer-valued
     shifts.  Edges follow the flat-wrap rule; ``wind_size`` is a power of two
-    in 4..128."""
+    in 4..128.  ``extract_mode`` is ``"rolls"`` or ``"mxu"`` (the frames
+    rounded to bfloat16 first); ``stub`` other than ``"none"`` raises."""
     check_windows("fused_piv_pass", wind_size)
+    if stub != "none":
+        raise ValueError(
+            f"fused_piv_pass: stub={stub!r} is a TPU attribution build; the "
+            f"port's attribution of this kernel is "
+            f"'python tools/corrfit_anatomy_cuda.py anatomy'")
+    if extract_mode not in EXTRACT_MODES:
+        raise ValueError(f"fused_piv_pass: unknown extract_mode {extract_mode!r}")
     if frame_a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_piv_pass: unsupported device {frame_a.device}")
     if frame_a.shape != frame_b.shape:
@@ -92,6 +115,8 @@ def fused_piv_pass(
         maps = tuple(m[None] for m in maps)
     if any(t.device != frame_a.device for t in (frame_b, *maps)):
         raise ValueError("frames and shift maps must be on one device")
+    if extract_mode == "mxu":  # the one-hot products' bfloat16 band
+        frame_a, frame_b = (f.to(torch.bfloat16).float() for f in (frame_a, frame_b))
     kw = dict(frame_shape=frame_shape, wind_size=wind_size, overlap=overlap,
               max_shift=max_shift)
     if frame_a.device.type == "cpu":

@@ -15,7 +15,15 @@ The bilinear kernel, the bicubic one, ``"bf16"``, ``"lanephases"`` and
 ``"phases"`` keep a window in a warp's registers (a tile row a coalesced
 load, neighbours by shuffle, no shared memory); ``describe`` reports what
 the compiler made of each of their instances.  The variants take what the TPU wrapper takes for
-them: bilinear only, no ``packed`` output, float32 output.  ``"bf16"``,
+them: bilinear only, no ``packed`` output, float32 output.
+
+``out_dtype`` is the element type of the bilinear and bicubic kernels'
+stores, as in the TPU wrapper: float32, bfloat16 or float16 (any other
+raises ``ValueError``).  The kernels compute in float32 whatever it is and
+round only at the store, to nearest even (``csrc/store.cuh``; one C entry
+point a type, ``STORE_SYMBOLS``), so a narrow store equals the plain
+version's float32 result cast with ``.to(out_dtype)`` and writes half the
+bytes.  ``"bf16"``,
 ``"mxu"`` and ``"phases"`` compute on the padded frame rounded to bfloat16
 (round to nearest even, after the flat-wrap pad): ``"mxu"`` and
 ``"phases"`` read a bfloat16 copy of it (``BF16_FRAME_VARIANTS``),
@@ -56,6 +64,17 @@ DESCRIBED = {"shift_windows": MAX_SHIFT_WIND,
              "shift_windows_lanephases": MAX_SHIFT_WIND}
 # the variants whose kernel reads a bfloat16 copy of the padded frame
 BF16_FRAME_VARIANTS = ("mxu", "phases")
+# the store types of the bilinear, bicubic and deformation kernels, and the
+# suffix of each one's C entry point (``csrc/store.cuh``)
+STORE_SYMBOLS = {torch.float32: "f32", torch.bfloat16: "store_bf16",
+                 torch.float16: "store_f16"}
+
+
+def check_store(name: str, out_dtype: torch.dtype) -> None:
+    """Raise ``ValueError`` unless kernel ``name`` can store ``out_dtype``."""
+    if out_dtype not in STORE_SYMBOLS:
+        raise ValueError(f"{name}: out_dtype {out_dtype} is none of float32, "
+                         f"bfloat16 and float16")
 
 
 def shift_pallas_supported(wind_size: int, interp: str = "bilinear") -> bool:
@@ -79,10 +98,10 @@ def describe(wind_size: int, name: str = "shift_windows") -> Dict[str, int]:
 
 
 def launch(ops: ShiftOperands, wind_size: int, interp: str = "bilinear",
-           packed: bool = False) -> torch.Tensor:
+           packed: bool = False, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Launch the kernel on CUDA ``ShiftOperands`` -> ``[B, N, w, w]``, or
     with ``packed`` (bilinear only) ``[B, n_rows, w, Lp]``, over the
-    operands' window rows."""
+    operands' window rows, stored in ``out_dtype``."""
     cubic = interp == "bicubic"
     name = "shift_windows_bicubic" if cubic else "shift_windows"
     B, Hp, Wp = ops.frame.shape
@@ -94,9 +113,9 @@ def launch(ops: ShiftOperands, wind_size: int, interp: str = "bilinear",
         layout = (int(packed), Lp // wind_size)
         if packed:
             shape = (B, ops.n_rows, wind_size, Lp)
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    out = torch.empty(shape, dtype=out_dtype, device=dev)
     fn = _build.function(
-        name, f"{name}_f32",
+        name, f"{name}_{STORE_SYMBOLS[out_dtype]}",
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * (9 + len(layout))
         + [ctypes.c_void_p])
     with torch.cuda.device(dev):
@@ -170,7 +189,7 @@ def shift_windows(
     row_start: int = 0,
     n_rows_local: Optional[int] = None,
 ) -> torch.Tensor:
-    """Per-window shifted windows ``[B, N, w, w]`` float32 from ``[B, H, W]``
+    """Per-window shifted windows ``[B, N, w, w]`` in ``out_dtype`` from ``[B, H, W]``
     frames and ``[B, N]`` shifts in pixels (``[N, w, w]`` from ``[H, W]`` and
     ``[N]``); integer-valued shifts give the DWS integer tile copy.
     ``interp`` is ``"bilinear"`` or ``"bicubic"`` (Keys, a = -0.5).
@@ -199,8 +218,7 @@ def shift_windows(
     if not shift_pallas_supported(wind_size, interp):
         raise ValueError(f"shift_windows: wind_size={wind_size} > "
                          f"{MAX_WIND[interp]} ({interp})")
-    if out_dtype != torch.float32:
-        raise ValueError(f"shift_windows stores float32 only, not {out_dtype}")
+    check_store("shift_windows", out_dtype)
     if frame.device.type not in ("cpu", "cuda"):
         raise ValueError(f"shift_windows: unsupported device {frame.device}")
     batched = frame.dim() == 3
@@ -217,12 +235,13 @@ def shift_windows(
             out = blend_reference_bicubic(ops, wind_size)
         else:
             out = blend_reference_variant(ops, wind_size, variant)
+        out = out.to(out_dtype)  # the kernels round at the store
         if packed:
             out = pack_windows(out, ops.n_rows, ops.n_cols, wind_size)
     elif variant != "rolls":
         out = launch_variant(ops, wind_size, variant)
     else:
-        out = launch(ops, wind_size, interp, packed)
+        out = launch(ops, wind_size, interp, packed, out_dtype)
     return out if batched else out[0]
 
 

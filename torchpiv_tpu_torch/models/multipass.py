@@ -44,6 +44,14 @@ name runs ``"rolls"``, as in the JAX engine.  ``fused="on"`` and DEF ignore
 it.  Three of the variants read the frame in bfloat16, which changes the
 result for frames whose values are not exact in bfloat16.
 
+``correlator="matmul"`` with ``dft_precision="default"`` and no window
+weights stores the refine passes' windows in bfloat16
+(``_window_store_dtype``): the "rolls" and bicubic shift kernels and the
+DEF kernel round at the store where the JAX engine passes its
+``out_dtype``, and the windows are promoted to float32 where they are
+correlated.  The bilinear windows of ``fused="split"`` and ``fused="on"``
+stay float32, as in the JAX engine.
+
 Robust-correlation and validation knobs, in the JAX engine's order:
 
 * ``frame_mask`` (a static region-of-interest mask, True = excluded): the
@@ -283,6 +291,21 @@ class MultipassPIV(nn.Module):
             r0, c0 = (t[rows[0] * C:(rows[0] + rows[1]) * C] for t in (r0, c0))
         return r0, c0
 
+    def _window_store_dtype(self) -> torch.dtype:
+        """Element type the shift and DEF kernels store windows in (the JAX
+        engine's ``_window_store_dtype``): bfloat16 where the matmul DFT at
+        ``dft_precision="default"`` correlates them unweighted, float32
+        otherwise.  On the TPU that DFT is one bfloat16 pass, whose rounding
+        of the windows the store applies; the port correlates in float32,
+        so the store's rounding is all of it that remains, as in the JAX
+        engine off the TPU.  ``correlator="auto"`` never picks the matmul
+        DFT here, as the JAX engine's does not off the TPU."""
+        cfg = self.config
+        if (cfg.correlator == "matmul" and cfg.dft_precision == "default"
+                and cfg.window_weight is None):
+            return torch.bfloat16
+        return torch.float32
+
     def _shift_variant(self) -> str:
         """The bilinear shift kernel of the CWS and DWS passes."""
         v = self.config.shift_variant
@@ -307,9 +330,11 @@ class MultipassPIV(nn.Module):
 
     def _corrfit(self, aa, bb, dc_normalize=False):
         """Windows ``[B, N, w, w]`` -> flat ``(u, v, invalid)`` through the
-        correlate-and-fit kernel."""
+        correlate-and-fit kernel; windows of a narrower type are promoted to
+        float32 first, as the JAX correlate-and-fit kernel promotes them."""
         cfg = self.config
         w = aa.shape[-1]
+        aa, bb = aa.float(), bb.float()
         return correlate_peakfit(aa.reshape(-1, w, w), bb.reshape(-1, w, w),
                                  cfg.validate, cfg.val_ratio,
                                  cfg.validation_window, dc_normalize)
@@ -354,7 +379,7 @@ class MultipassPIV(nn.Module):
             aa = extract_windows(frame_a, w, o).to(self.compute_dtype)
             bb = extract_windows(frame_b, w, o).to(self.compute_dtype)
             if rows is None and self._use_split():
-                u, v, inval = self._corrfit(aa.float(), bb.float(), dc_normalize=True)
+                u, v, inval = self._corrfit(aa, bb, dc_normalize=True)
             else:
                 wgt = self.weight_0
                 if wgt is None:
@@ -443,7 +468,8 @@ class MultipassPIV(nn.Module):
             maps = [sx, sy] + [g.reshape(B, -1).float() for g in grads]
             if self._use_pallas() and def_pallas_supported(
                     w, cfg.def_margin, cfg.cws_interp):
-                kw.update(margin=cfg.def_margin, interp=cfg.cws_interp)
+                kw.update(margin=cfg.def_margin, interp=cfg.cws_interp,
+                          out_dtype=self._window_store_dtype())
                 aa = def_windows(self._in_dtype(frame_a), *(-m for m in maps), **kw)
                 bb = def_windows(self._in_dtype(frame_b), *maps, **kw)
             else:  # the XLA path: dense per-pixel shifts, in ``dtype``
@@ -457,6 +483,13 @@ class MultipassPIV(nn.Module):
                 kw.update(interp=cfg.cws_interp)
             if kw.get("interp", "bilinear") == "bilinear":
                 kw.update(variant=self._shift_variant())
+            # the store type where the JAX engine's ``_shift`` asks for it:
+            # the "rolls" kernels, not the bilinear windows that its split
+            # mode takes from the packed kernel at float32
+            if cfg.shift_variant == "rolls" and not (
+                    rows is None and self._use_split()
+                    and cfg.cws_interp == "bilinear"):
+                kw.update(out_dtype=self._window_store_dtype())
             aa = shift_windows(self._in_dtype(frame_a), -sx, -sy, **kw)
             bb = shift_windows(self._in_dtype(frame_b), sx, sy, **kw)
         else:  # the XLA paths: per-pixel weights, no clamp, in ``dtype``
