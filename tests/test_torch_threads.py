@@ -38,7 +38,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 SHAPE = (256, 256)
 UNIT = 0.05 / 2.0 * 1000  # px -> output units at scale 0.05, dt 2
 SPAN_KEYS = {"pairs", "decode_s", "pin_s", "h2d_ms", "load_s", "issue_s",
-             "device_ms", "d2h_ms", "wait_s", "tail_s", "first_field_t"}
+             "device_ms", "d2h_ms", "wait_s", "tail_s", "first_field_t", "call"}
 
 
 def glare() -> np.ndarray:
@@ -297,6 +297,7 @@ def test_span_log_has_one_entry_per_batch_with_every_key(tmp_path):
             assert s[key] >= 0.0
         for key in ("h2d_ms", "device_ms", "d2h_ms"):  # CUDA events only
             assert s[key] is None
+        assert s["call"] is None  # records are kept under the profiler only
         assert s["first_field_t"] > t0
     assert spans[0]["first_field_t"] < spans[1]["first_field_t"]
 

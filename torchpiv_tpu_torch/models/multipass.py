@@ -82,6 +82,16 @@ Pass fusion (``fused``), with the JAX engine's rules:
 * Where a mode does not apply the engine runs the unfused chain and does
   not raise, as the JAX engine does.
 
+Stage spans (``utils.profiling``; they record only while ``torch.profiler``
+is active and change no result): ``forward`` is one ``piv.call``, tiled by
+``piv.input`` (the frames' cast and mask), per pass ``piv.pass<N>.predict``
+(refine passes: upsample, half-shift, zeroing, DEF gradients),
+``.windows`` (extraction or resampling), ``.correlate`` (window weights and
+the correlation, or the ``corrfit`` / ``fused_pass`` launch), ``.peakfit``
+(unfused chain) and ``.guard`` (anti-divergence guards, window mask), then
+``piv.post`` (``post_pass``), which also counts ``flagged``, the final
+field's invalid vectors.
+
 The static operators (spline upsample matrices ``Ay``/``Ax`` between pass
 grids, per-pass window origins) are registered buffers.  The predictor
 matmuls run in full float32 at the default ``dtype``: on a CUDA device the
@@ -119,6 +129,7 @@ from ..ops.validation import (apply_median_filter, global_std_test,
                               second_peak_acceptance, velocity_limits_test)
 from ..ops.windows import extract_windows
 from ..utils.device import check_no_tf32, resolve_device
+from ..utils.profiling import count, engine_call, span
 
 
 def _gradient(f: torch.Tensor, h: float, dim: int) -> torch.Tensor:
@@ -263,6 +274,12 @@ class MultipassPIV(nn.Module):
             maps, validate, cfg.val_ratio, cfg.validation_window,
             min_subtract=True, fit=cfg.subpixel, return_second=want_second)
 
+    @staticmethod
+    def _stage(p: int, name: str):
+        """The span of stage ``name`` of pass ``p`` (``piv.pass<p+1>.<name>``:
+        passes are numbered from 1)."""
+        return span(f"piv.pass{p + 1}.{name}")
+
     def _use_pallas(self) -> bool:
         """Refine passes resample through the kernels (``use_pallas``
         "auto" or "on": the card stands in for the TPU, whose kernels the
@@ -370,34 +387,40 @@ class MultipassPIV(nn.Module):
             frame_b = frame_b[:, top:top + (R - 1) * (w - o) + w]
         cand = None
         if rows is None and self._use_fused():
-            # zero shifts: plain extraction; the mean normalisation scales
-            # the map inside the kernel
-            z = torch.zeros((B, R * C), dtype=torch.float32, device=frame_a.device)
-            u, v, inval = self._fused_pass(0, frame_a, frame_b, z, z, z, z,
-                                           dc_normalize=True)
+            with self._stage(0, "correlate"):
+                # zero shifts: plain extraction; the mean normalisation
+                # scales the map inside the kernel
+                z = torch.zeros((B, R * C), dtype=torch.float32, device=frame_a.device)
+                u, v, inval = self._fused_pass(0, frame_a, frame_b, z, z, z, z,
+                                               dc_normalize=True)
         else:
-            aa = extract_windows(frame_a, w, o).to(self.compute_dtype)
-            bb = extract_windows(frame_b, w, o).to(self.compute_dtype)
+            with self._stage(0, "windows"):
+                aa = extract_windows(frame_a, w, o).to(self.compute_dtype)
+                bb = extract_windows(frame_b, w, o).to(self.compute_dtype)
             if rows is None and self._use_split():
-                u, v, inval = self._corrfit(aa, bb, dc_normalize=True)
+                with self._stage(0, "correlate"):
+                    u, v, inval = self._corrfit(aa, bb, dc_normalize=True)
             else:
-                wgt = self.weight_0
-                if wgt is None:
-                    # mean normalisation folded into the spectrum product
-                    corr = self._correlate(0, aa, bb, dc_normalize=True)
-                else:
-                    # the fold assumes unweighted windows: normalise first
-                    corr = self._correlate(0, mean_normalize(aa) * wgt,
-                                           mean_normalize(bb) * wgt)
-                u, v, inval, *cand = self._peakfit(corr, cfg.validate, want_second)
-        shape = (B, R, C)
-        u, v, inval = self._apply_window_mask(
-            0, u.reshape(shape), v.reshape(shape),
-            None if inval is None else inval.reshape(shape), rows)
-        if want_second:
-            (cu, cv), = cand
-            return u, v, inval, (cu.reshape(shape), cv.reshape(shape))
-        return u, v, inval
+                with self._stage(0, "correlate"):
+                    wgt = self.weight_0
+                    if wgt is None:
+                        # mean normalisation folded into the spectrum product
+                        corr = self._correlate(0, aa, bb, dc_normalize=True)
+                    else:
+                        # the fold assumes unweighted windows: normalise first
+                        corr = self._correlate(0, mean_normalize(aa) * wgt,
+                                               mean_normalize(bb) * wgt)
+                with self._stage(0, "peakfit"):
+                    u, v, inval, *cand = self._peakfit(corr, cfg.validate, want_second)
+        with self._stage(0, "guard"):
+            shape = (B, R, C)
+            u, v, inval = self._apply_window_mask(
+                0, u.reshape(shape), v.reshape(shape),
+                None if inval is None else inval.reshape(shape), rows)
+            if want_second:
+                (cu, cv), = cand
+                return u, v, inval, (cu.reshape(shape), cv.reshape(shape))
+            return u, v, inval
 
     def _refine_pass(self, p, frame_a, frame_b, u, v, inval, want_second=False,
                      rows=None):
@@ -421,64 +444,121 @@ class MultipassPIV(nn.Module):
         def up(field, A=Ay_rows):  # spline predictor, [B, R0, C0] -> [B, R, C1]
             return torch.matmul(torch.matmul(A, field.to(self.compute_dtype)), Ax.T)
 
-        u0 = up(u)
-        v0 = up(v)
-        if inval is not None:
-            val0 = up(inval) >= 0.5
+        with self._stage(p, "predict"):
+            u0 = up(u)
+            v0 = up(v)
+            if inval is not None:
+                val0 = up(inval) >= 0.5
+            if cfg.multipass_mode in ("CWS", "DEF"):
+                # half-shift from the PRE-zeroed predictor
+                u2 = u0 / 2.0
+                v2 = v0 / 2.0
+                if inval is not None:
+                    u0 = torch.where(val0, 0.0, u0)
+                    v0 = torch.where(val0, 0.0, v0)
+            else:  # DWS: predictor zeroed BEFORE rounding
+                if inval is not None:
+                    u0 = torch.where(val0, 0.0, u0)
+                    v0 = torch.where(val0, 0.0, v0)
+                u2 = torch.round(u0 / 2.0)  # integer shifts: a pure tile copy
+                v2 = torch.round(v0 / 2.0)
+            # the kernels take float32 shifts (the values in ``dtype``)
+            sx, sy = u2.reshape(B, -1).float(), v2.reshape(B, -1).float()
+            maps = None
+            if cfg.multipass_mode == "DEF":
+                # locally linearised displacement: the half-shift plus its
+                # gradient across the window, symmetric between the frames
+                step = float(w - o)
+                u2f, v2f = u2, v2
+                if rows is not None:
+                    # the gradients need the rows on either side of the
+                    # block: differentiate the full predictor, then take
+                    # the block
+                    u2f, v2f = up(u, Ay) / 2.0, up(v, Ay) / 2.0
+                    u2, v2 = u2f[:, org:org + R], v2f[:, org:org + R]
+                    sx, sy = u2.reshape(B, -1).float(), v2.reshape(B, -1).float()
+                grads = [_gradient(u2f, step, -1), _gradient(u2f, step, -2),
+                         _gradient(v2f, step, -1), _gradient(v2f, step, -2)]
+                if rows is not None:
+                    grads = [g[:, org:org + R] for g in grads]
+                maps = [sx, sy] + [g.reshape(B, -1).float() for g in grads]
 
         kw = dict(frame_shape=cfg.frame_shape, wind_size=w, overlap=o,
                   max_shift=cfg.max_shift, flat_wrap=cfg.edge_exact)
         if rows is not None:
             kw.update(row_start=org, n_rows_local=R)
-        if cfg.multipass_mode in ("CWS", "DEF"):
-            # half-shift from the PRE-zeroed predictor
-            u2 = u0 / 2.0
-            v2 = v0 / 2.0
-            if inval is not None:
-                u0 = torch.where(val0, 0.0, u0)
-                v0 = torch.where(val0, 0.0, v0)
-        else:  # DWS: predictor zeroed BEFORE rounding
-            if inval is not None:
-                u0 = torch.where(val0, 0.0, u0)
-                v0 = torch.where(val0, 0.0, v0)
-            u2 = torch.round(u0 / 2.0)  # integer shifts: a pure tile copy
-            v2 = torch.round(v0 / 2.0)
-        # the kernels take float32 shifts (the values in ``dtype``)
-        sx, sy = u2.reshape(B, -1).float(), v2.reshape(B, -1).float()
         fused_result = None
         if cfg.multipass_mode != "DEF" and rows is None and self._use_fused():
-            # DWS shifts are integer-valued: the kernel's blend degenerates
-            # to the floor corner, the integer tile copy
-            fused_result = self._fused_pass(p, frame_a, frame_b, -sx, -sy, sx, sy)
-        elif cfg.multipass_mode == "DEF":
-            # locally linearised displacement: the half-shift plus its
-            # gradient across the window, symmetric between the frames
-            step = float(w - o)
-            u2f, v2f = u2, v2
-            if rows is not None:
-                # the gradients need the rows on either side of the block:
-                # differentiate the full predictor, then take the block
-                u2f, v2f = up(u, Ay) / 2.0, up(v, Ay) / 2.0
-                u2, v2 = u2f[:, org:org + R], v2f[:, org:org + R]
-                sx, sy = u2.reshape(B, -1).float(), v2.reshape(B, -1).float()
-            grads = [_gradient(u2f, step, -1), _gradient(u2f, step, -2),
-                     _gradient(v2f, step, -1), _gradient(v2f, step, -2)]
-            if rows is not None:
-                grads = [g[:, org:org + R] for g in grads]
-            maps = [sx, sy] + [g.reshape(B, -1).float() for g in grads]
+            with self._stage(p, "correlate"):
+                # DWS shifts are integer-valued: the kernel's blend
+                # degenerates to the floor corner, the integer tile copy
+                fused_result = self._fused_pass(p, frame_a, frame_b, -sx, -sy, sx, sy)
+        else:
+            with self._stage(p, "windows"):
+                aa, bb = self._refine_windows(p, frame_a, frame_b, sx, sy, maps,
+                                              rows, kw)
+
+        cand = None
+        if fused_result is not None:
+            du, dv, new_inval = fused_result
+        elif rows is None and self._use_split():
+            with self._stage(p, "correlate"):
+                du, dv, new_inval = self._corrfit(aa, bb)
+        else:
+            with self._stage(p, "correlate"):
+                wgt = getattr(self, f"weight_{p}")
+                if wgt is not None:  # weights apply after the shift
+                    aa, bb = aa * wgt, bb * wgt
+                corr = self._correlate(p, aa, bb)
+            with self._stage(p, "peakfit"):
+                du, dv, new_inval, *cand = self._peakfit(corr, cfg.validate, want_second)
+        with self._stage(p, "guard"):
+            shape = (B, R, C)
+            du = du.reshape(shape)
+            dv = dv.reshape(shape)
+            if new_inval is not None:
+                new_inval = new_inval.reshape(shape)
+
+            u_new = 2.0 * u2 + du
+            v_new = 2.0 * v2 + dv
+            # anti-divergence guards
+            mask_u = (du > u0) & (torch.round(u0) > 0)
+            mask_v = (dv > v0) & (torch.round(v0) > 0)
+            if new_inval is not None:
+                mask_u = mask_u | new_inval
+                mask_v = mask_v | new_inval
+            u, v, new_inval = self._apply_window_mask(
+                p, torch.where(mask_u, u0, u_new), torch.where(mask_v, v0, v_new),
+                new_inval, rows)
+            if want_second:
+                # the same half-shift the first fit refines, plus the second
+                # peak's residual fit
+                (du2, dv2), = cand
+                return u, v, new_inval, (2.0 * u2 + du2.reshape(shape),
+                                         2.0 * v2 + dv2.reshape(shape))
+            return u, v, new_inval
+
+    def _refine_windows(self, p, frame_a, frame_b, sx, sy, maps, rows, kw):
+        """Pass ``p``'s resampled windows ``(aa, bb)``: DEF (``maps``: the
+        half-shift and its four gradients, flat ``[B, N]``) through the
+        deformation kernel or its XLA path, CWS and DWS (``sx``, ``sy``)
+        through a shift kernel or the XLA paths; ``kw``: the kernels'
+        geometry."""
+        cfg = self.config
+        w = self.schedule[p][0]
+        if maps is not None:
             if self._use_pallas() and def_pallas_supported(
                     w, cfg.def_margin, cfg.cws_interp):
                 kw.update(margin=cfg.def_margin, interp=cfg.cws_interp,
                           out_dtype=self._window_store_dtype())
-                aa = def_windows(self._in_dtype(frame_a), *(-m for m in maps), **kw)
-                bb = def_windows(self._in_dtype(frame_b), *maps, **kw)
-            else:  # the XLA path: dense per-pixel shifts, in ``dtype``
-                xkw = dict(interp=cfg.cws_interp, dtype=self.compute_dtype)
-                r0, c0 = self._window_origins(p, rows)
-                aa = def_windows_xla(frame_a, r0, c0, w, *(-m for m in maps),
-                                     **xkw).float()
-                bb = def_windows_xla(frame_b, r0, c0, w, *maps, **xkw).float()
-        elif self._shift_kernel(w):
+                return (def_windows(self._in_dtype(frame_a), *(-m for m in maps), **kw),
+                        def_windows(self._in_dtype(frame_b), *maps, **kw))
+            # the XLA path: dense per-pixel shifts, in ``dtype``
+            xkw = dict(interp=cfg.cws_interp, dtype=self.compute_dtype)
+            r0, c0 = self._window_origins(p, rows)
+            return (def_windows_xla(frame_a, r0, c0, w, *(-m for m in maps), **xkw).float(),
+                    def_windows_xla(frame_b, r0, c0, w, *maps, **xkw).float())
+        if self._shift_kernel(w):
             if cfg.multipass_mode == "CWS":  # DWS stays the integer copy
                 kw.update(interp=cfg.cws_interp)
             if kw.get("interp", "bilinear") == "bilinear":
@@ -490,53 +570,17 @@ class MultipassPIV(nn.Module):
                     rows is None and self._use_split()
                     and cfg.cws_interp == "bilinear"):
                 kw.update(out_dtype=self._window_store_dtype())
-            aa = shift_windows(self._in_dtype(frame_a), -sx, -sy, **kw)
-            bb = shift_windows(self._in_dtype(frame_b), sx, sy, **kw)
-        else:  # the XLA paths: per-pixel weights, no clamp, in ``dtype``
-            r0, c0 = self._window_origins(p, rows)
-            if cfg.multipass_mode == "DWS":
-                shift, vx, vy = dws_shift, sx.to(torch.int32), sy.to(torch.int32)
-            else:
-                shift = bicubic_cws_shift if cfg.cws_interp == "bicubic" else cws_shift
-                vx, vy = sx, sy
-            aa = shift(frame_a, r0, c0, w, -vx, -vy, self.compute_dtype).float()
-            bb = shift(frame_b, r0, c0, w, vx, vy, self.compute_dtype).float()
-
-        cand = None
-        if fused_result is not None:
-            du, dv, new_inval = fused_result
-        elif rows is None and self._use_split():
-            du, dv, new_inval = self._corrfit(aa, bb)
+            return (shift_windows(self._in_dtype(frame_a), -sx, -sy, **kw),
+                    shift_windows(self._in_dtype(frame_b), sx, sy, **kw))
+        # the XLA paths: per-pixel weights, no clamp, in ``dtype``
+        r0, c0 = self._window_origins(p, rows)
+        if cfg.multipass_mode == "DWS":
+            shift, vx, vy = dws_shift, sx.to(torch.int32), sy.to(torch.int32)
         else:
-            wgt = getattr(self, f"weight_{p}")
-            if wgt is not None:  # weights apply after the shift
-                aa, bb = aa * wgt, bb * wgt
-            corr = self._correlate(p, aa, bb)
-            du, dv, new_inval, *cand = self._peakfit(corr, cfg.validate, want_second)
-        shape = (B, R, C)
-        du = du.reshape(shape)
-        dv = dv.reshape(shape)
-        if new_inval is not None:
-            new_inval = new_inval.reshape(shape)
-
-        u_new = 2.0 * u2 + du
-        v_new = 2.0 * v2 + dv
-        # anti-divergence guards
-        mask_u = (du > u0) & (torch.round(u0) > 0)
-        mask_v = (dv > v0) & (torch.round(v0) > 0)
-        if new_inval is not None:
-            mask_u = mask_u | new_inval
-            mask_v = mask_v | new_inval
-        u, v, new_inval = self._apply_window_mask(
-            p, torch.where(mask_u, u0, u_new), torch.where(mask_v, v0, v_new),
-            new_inval, rows)
-        if want_second:
-            # the same half-shift the first fit refines, plus the second
-            # peak's residual fit
-            (du2, dv2), = cand
-            return u, v, new_inval, (2.0 * u2 + du2.reshape(shape),
-                                     2.0 * v2 + dv2.reshape(shape))
-        return u, v, new_inval
+            shift = bicubic_cws_shift if cfg.cws_interp == "bicubic" else cws_shift
+            vx, vy = sx, sy
+        return (shift(frame_a, r0, c0, w, -vx, -vy, self.compute_dtype).float(),
+                shift(frame_b, r0, c0, w, vx, vy, self.compute_dtype).float())
 
     def _apply_global_filters(self, u, v, inval):
         """Velocity limits and the global mean +- k*sigma test; windows
@@ -609,16 +653,23 @@ class MultipassPIV(nn.Module):
             raise ValueError(f"frames {tuple(frame_a.shape)}/{tuple(frame_b.shape)} "
                              f"do not match frame_shape {self.config.frame_shape}")
         cfg = self.config
-        frame_a = self._masked_frame(frame_a.to(self.device, torch.float32))
-        frame_b = self._masked_frame(frame_b.to(self.device, torch.float32))
-        last = len(self.schedule) - 1
-        want = cfg.second_peak_fallback
-        u, v, inval, *cand = self.first_pass(frame_a, frame_b,
-                                             want_second=want and last == 0)
-        for p in range(1, last + 1):
-            u, v, inval, *cand = self._refine_pass(
-                p, frame_a, frame_b, u, v, inval, want_second=want and p == last)
-        u, v, inval = self.post_pass(u, v, inval, cand[0] if cand else None)
+        B = frame_a.shape[0]
+        R, C = self.final_field_shape
+        with engine_call(self.device, B, B * R * C):
+            # the frames' cast and mask count with the field operations
+            with span("piv.input"):
+                frame_a = self._masked_frame(frame_a.to(self.device, torch.float32))
+                frame_b = self._masked_frame(frame_b.to(self.device, torch.float32))
+            last = len(self.schedule) - 1
+            want = cfg.second_peak_fallback
+            u, v, inval, *cand = self.first_pass(frame_a, frame_b,
+                                                 want_second=want and last == 0)
+            for p in range(1, last + 1):
+                u, v, inval, *cand = self._refine_pass(
+                    p, frame_a, frame_b, u, v, inval, want_second=want and p == last)
+            with span("piv.post"):
+                u, v, inval = self.post_pass(u, v, inval, cand[0] if cand else None)
+                count("flagged", inval)
         if single:
             u, v = u[0], v[0]
             inval = None if inval is None else inval[0]

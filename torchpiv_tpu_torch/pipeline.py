@@ -55,6 +55,7 @@ from .models.multipass import MultipassPIV
 from .ops.infill import fill_missing_values, interpolate_borders
 from .parallel.sharded import ShardedPIV
 from .stats.ensemble import EnsembleAccumulator
+from .utils import profiling
 from .utils.config import PIVParams
 from .utils.device import resolve_device
 from .utils.persistence import save_binary, save_table
@@ -222,7 +223,8 @@ class OfflinePIV:
     result; set them to a list before calling the instance:
 
     * ``transfer_log``: each batch placed on the device appends
-      ``(t_start, t_end, n_bytes)`` (``io.prefetch.PairPrefetcher``);
+      ``(t_start, t_end, n_bytes)`` (``io.prefetch.PairPrefetcher``), on
+      ``time.perf_counter``;
     * ``span_log``: each drained batch appends a dict of its host spans:
       ``pairs``; ``decode_s`` and ``pin_s`` (decode and pinned staging, on a
       decode thread); ``h2d_ms`` (CUDA events around the copies on the
@@ -234,7 +236,14 @@ class OfflinePIV:
       ``finalize_fields`` fan-out, until every field of the batch is
       handed to the caller's queue); ``first_field_t`` (``time.perf_counter``
       when the batch's first field was yielded; None if every pair of it
-      was skipped).  The CUDA event spans are None on the CPU.
+      was skipped); ``call`` (the id of the engine call's record in
+      ``utils.profiling.calls()``, None unless ``torch.profiler`` was
+      active).  The CUDA event spans are None on the CPU.
+
+    Clocks: the ``_s`` spans and ``first_field_t`` are ``time.perf_counter``
+    on the thread named; the ``_ms`` spans are CUDA events, device time;
+    the engine call's record takes ``time.time_ns()``, the profiler's
+    clock, with CUDA events on the feeder's stream.
     """
 
     def __init__(
@@ -450,6 +459,7 @@ class OfflinePIV:
                          torch.cuda.Event(enable_timing=True))
                 marks[0].record()
             t0 = time.perf_counter()
+            call = None
             if sharded is not None:
                 packed = mesh_forward(batch_a, batch_b)
             else:
@@ -457,9 +467,11 @@ class OfflinePIV:
                     batch_a = torch.where(batch_a > bg, batch_a - bg, 0)
                     batch_b = torch.where(batch_b > bg, batch_b - bg, 0)
                 packed = packed_forward(engine, batch_a, batch_b)
+                call = profiling.last_call()
             issue_s = time.perf_counter() - t0
+            stats = (span, marks, load_s, issue_s, call)
             if not cuda:  # the result is host memory already
-                return ids, packed, None, None, (span, marks, load_s, issue_s)
+                return ids, packed, None, None, stats
             if marks is not None:
                 marks[1].record()
             buf = take_buffer()
@@ -470,7 +482,7 @@ class OfflinePIV:
             copied = torch.cuda.Event(enable_timing=timing)
             copied.record()
             # `packed` is freed on return, on the stream that made it
-            return ids, host, buf, copied, (span, marks, load_s, issue_s)
+            return ids, host, buf, copied, stats
 
         def feeder():
             try:
@@ -481,7 +493,6 @@ class OfflinePIV:
                         if stop.is_set():
                             break
                         start = time.perf_counter()
-                        log.info("load time %.3f s", start - load_t)
                         item = issue(batch_a, batch_b, ids, span, start - load_t)
                         if item is None or not put_interruptible(pending_q, item):
                             break
@@ -494,9 +505,9 @@ class OfflinePIV:
 
         def spans_of(n, stats, copied, wait_s):
             """A drained batch's spans (see the class docstring)."""
-            pre, marks, load_s, issue_s = stats
+            pre, marks, load_s, issue_s, call = stats
             h2d = pre.pop("h2d")
-            return {**pre, "pairs": n,
+            return {**pre, "pairs": n, "call": call,
                     "h2d_ms": h2d[0].elapsed_time(h2d[1]) if h2d else None,
                     "load_s": load_s, "issue_s": issue_s,
                     "device_ms": marks[0].elapsed_time(marks[1]) if marks else None,
@@ -545,8 +556,6 @@ class OfflinePIV:
                             span["tail_s"] = time.perf_counter() - t_wait
                         if buf is not None:
                             free_q.put(buf)
-                        log.info("batch of %d drained in %.3f s",
-                                 len(ids), time.perf_counter() - t0)
             except BaseException as e:  # noqa: BLE001 - forwarded to caller
                 errors.append(e)
                 stop.set()
