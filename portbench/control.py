@@ -4,67 +4,59 @@ the control's, on many seeds in one process.
 
     python3 portbench/control.py --workload <name> --seeds 1 2 3 ... [--out FILE]
 
-For each seed the cell's frames are made as a run makes them; ``check_pairs``
-of them, drawn from the seed, go through the program's timed entry
-(``pipeline.packed_forward`` at the cell's batch, then ``pipeline.tail_of``)
-and through the reference twice: in float64 (the yardstick) and as the
-control, in float32 with every matrix product's operands rounded to TF32
-(the nearest precision below the configuration's float32 with TF32 off).
-Both the program's and the control's answers are held against the float64
-reference by the numbers of ``lib/check.py``.  One JSON line a seed goes to
-standard output (and to ``--out``).  The benchmark's runs do not run this.
+For each seed the cell's frames are made as a run makes them, and the
+cell's drive (``lib/<drive>.py``) sets the program up and runs a short
+window of ``WINDOW_S`` seconds at the cell's own load; the
+``check_pairs`` answers it samples from the seed go, with their pairs,
+through the cell's reference (``reference/<name>.py``) twice: in float64
+(the yardstick) and as the control, in float32 with every matrix
+product's operands rounded to TF32 (the nearest precision below the
+configuration's float32 with TF32 off).  Both the program's and the
+control's answers are held against the float64 reference by the numbers
+of ``lib/check.py``.  One JSON line a seed goes to standard output (and to
+``--out``).  The benchmark's runs do not run this.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
-import random
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+WINDOW_S = 2.0
 
 
-def readings(cell, seed: int, device) -> dict:
+def readings(cell, seed: int, device, seconds: float = WINDOW_S) -> dict:
     """The program's and the control's numbers for one seed."""
     import torch
 
     from portbench.lib import frames
     from portbench.lib.check import numbers, reference_answers
-    from torchpiv_tpu_torch.config import PIVConfig
-    from torchpiv_tpu_torch.models.multipass import MultipassPIV
-    from torchpiv_tpu_torch.pipeline import packed_forward, tail_of
 
     cfg, mix = cell.config, cell.traffic
     n = int(mix["unique_pairs"])
     cell.frames = frames.pairs(n, tuple(cfg["frame_shape"]), mix, seed, device)
-    fa, fb = cell.frames
-    B = cfg["batch"]
-    pick = sorted(random.Random(seed).sample(range(n), cell.check_pairs))
-    engine = MultipassPIV(PIVConfig(frame_shape=tuple(cfg["frame_shape"]),
-                                    **cfg["engine"]), device=device)
-    tail = tail_of(engine, 1.0, 1.0)
-    program = []
-    with torch.no_grad():
-        for s in range(0, len(pick), B):
-            idx = torch.tensor(pick[s:s + B], device=device)
-            packed = packed_forward(engine, fa[idx], fb[idx]).cpu().numpy()
-            for j, k in enumerate(pick[s:s + B]):
-                program.append({"pair": k, "invalid": packed[j, 2] > 0.5,
-                                "field": tail(packed[j, 0], packed[j, 1], packed[j, 2] > 0.5)})
-    del engine
+    state = cell.drive.setup(cell, device, seconds, seed)
+    try:
+        program = cell.drive.window(cell, state, seconds, seed, False)["samples"]
+    finally:
+        cell.drive.teardown(state)
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    pick = sorted({s["pair"] for s in program})
+    ref, rcfg = cell.reference, cell.reference_config
     t = time.perf_counter()
-    want = reference_answers(cell.frames, pick, cell.reference_config, "float64")
+    want = reference_answers(ref, cell.frames, pick, rcfg, "float64")
     ref_s = time.perf_counter() - t
-    low = reference_answers(cell.frames, pick, cell.reference_config, "tf32")
-    control = [{"pair": k, "field": low[k][0], "invalid": low[k][1]} for k in pick]
-    out = {"seed": seed, "pairs": pick, "reference_s": ref_s,
-           "program": numbers(program, want, cell.reference_config),
-           "control": numbers(control, want, cell.reference_config)}
+    low = reference_answers(ref, cell.frames, pick, rcfg, "tf32")
+    control = [{"pair": s["pair"], "field": low[s["pair"]][0], "invalid": low[s["pair"]][1]}
+               for s in program]
+    out = {"seed": seed, "pairs": [s["pair"] for s in program], "reference_s": ref_s,
+           "program": numbers(ref, program, want, rcfg),
+           "control": numbers(ref, control, want, rcfg)}
     cell.frames = None
     return out
 

@@ -5,11 +5,16 @@ A cell of ``BENCHMARK.json`` names a configuration (``configs/<config>.json``)
 and a traffic mix (``traffic/<traffic>.json``); its limits are in
 ``limits/<cell>.json`` and each metric it reports is read by
 ``metrics/<metric>.py`` (a module with ``read(rec)``, returning a number or
-None; see ``load_metric``).  Adding a cell, a mix or a metric adds files and entries and edits
-none.
+None; see ``load_metric``).  The configuration's ``reference`` (``"piv"``
+where it names none) is ``reference/<name>.py``, the plain implementation
+that decides ``correct`` (see ``load_reference``); the mix's ``drive`` is
+``lib/<drive>.py``, the code that builds the program and runs the window
+(see ``load_drive``).  Adding a cell, a configuration with its reference, a
+mix with its drive, or a metric adds files and entries and edits none.
 """
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import os
@@ -46,6 +51,41 @@ def load_metric(name: str):
     return mod
 
 
+def _modules(folder: str) -> List[str]:
+    return sorted(f[:-3] for f in os.listdir(os.path.join(HERE, folder))
+                  if f.endswith(".py") and f != "__init__.py")
+
+
+def _is_drive(name: str) -> bool:
+    return getattr(importlib.import_module(f"{__package__}.{name}"), "DRIVE", False) is True
+
+
+def load_reference(name: str):
+    """The plain reference ``reference/<name>.py``: a module with
+    ``settings(cfg)`` (the configuration with the reference's defaults;
+    raises ``ValueError`` on a key whose semantics it does not compute) and
+    ``run(frame_a, frame_b, cfg, precision)`` (``precision`` "float64", or
+    "tf32" for the control), returning one pair's ``((x, y, u, v) or None,
+    invalid)``."""
+    present = _modules("reference")
+    if name not in present:
+        raise SystemExit(f"no reference {name!r}: the references present are {present}")
+    return importlib.import_module(f"{__package__.rsplit('.', 1)[0]}.reference.{name}")
+
+
+def load_drive(name: str):
+    """The drive ``lib/<name>.py``: a module that says ``DRIVE = True`` and
+    has ``setup(cell, device, seconds, seed) -> state``, ``window(cell,
+    state, seconds, seed, traced, on_open, on_close) -> out`` (the run's
+    records, see ``Records``; ``out["harness_s"]``, where given, is set-up
+    time that the harness spent on traffic of its own and that ``setup_s``
+    leaves out) and ``teardown(state)``."""
+    if name in _modules("lib") and _is_drive(name):
+        return importlib.import_module(f"{__package__}.{name}")
+    drives = [m for m in _modules("lib") if _is_drive(m)]
+    raise SystemExit(f"no drive {name!r}: the drives present are {drives}")
+
+
 class Cell:
     """A workload of ``BENCHMARK.json`` with its parts loaded."""
 
@@ -60,6 +100,9 @@ class Cell:
         self.traffic = load_json(os.path.join(HERE, "traffic", f"{self.entry['traffic']}.json"))
         self.limits = load_json(os.path.join(HERE, "limits", f"{name}.json"))
         self.check_pairs = int(self.limits["check_pairs"])
+        self.reference = load_reference(self.config.get("reference", "piv"))
+        self.reference.settings(self.reference_config)
+        self.drive = load_drive(self.traffic["drive"])
         self.end_to_end = [m for m in bench["end_to_end"] if applies(m, name)]
         reported = {m["name"] for m in self.end_to_end}
         self.per_layer = [m for m in bench["per_layer"]
@@ -89,11 +132,13 @@ def forbidden_modules() -> List[str]:
 
 
 class Records:
-    """What the metric readers read: the driver's records of the window,
-    the trace's summary (traced runs), the cell and the device."""
+    """What the metric readers read: the drive's records of the window
+    (``out``, with its common keys as attributes), the trace's summary
+    (traced runs), the cell and the device."""
 
     def __init__(self, cell: Cell, out: dict, setup_s: float, trace, kind: str):
         self.cell = cell
+        self.out = out
         self.setup_s = setup_s
         self.fields = out["fields"]
         self.seconds = out["seconds"]
@@ -109,7 +154,7 @@ def run(name: str, seed: int, seconds: float, traced: bool, device: torch.device
         shrink: Optional[dict] = None) -> dict:
     """One run; returns the result line as a dict.  ``shrink`` (the CPU
     tests) makes the cell small."""
-    from . import folder, frames, staged
+    from . import frames
     from .check import decide, report
     from .trace import Tracer, summarize
 
@@ -121,7 +166,6 @@ def run(name: str, seed: int, seconds: float, traced: bool, device: torch.device
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cfg, mix = cell.config, cell.traffic
-    drive = mix["drive"]
     n = int(mix["unique_pairs"])
     if n % cfg["batch"]:
         raise SystemExit("unique_pairs must be a multiple of the batch")
@@ -139,25 +183,17 @@ def run(name: str, seed: int, seconds: float, traced: bool, device: torch.device
             tracer.__enter__()
         hooks = dict(on_open=tracer.open, on_close=tracer.close) if tracer else {}
         t = time.perf_counter()
-        if drive == "staged":
-            engine, tail = staged.setup(cell, device)
-            log(f"engine built and warmed in {time.perf_counter() - t:.2f} s")
-            out = staged.window(cell, device, engine, tail, seconds, seed, traced, **hooks)
-            del engine, tail
-        elif drive == "folder":
-            state = folder.setup(cell, device, seconds, seed)
-            log(f"folder written and OfflinePIV built in {time.perf_counter() - t:.2f} s")
-            out = folder.window(cell, state, seconds, seed, traced, **hooks)
-        else:
-            raise SystemExit(f"unknown drive {drive!r}")
+        state = cell.drive.setup(cell, device, seconds, seed)
+        log(f"drive {mix['drive']!r} set up in {time.perf_counter() - t:.2f} s")
+        out = cell.drive.window(cell, state, seconds, seed, traced, **hooks)
     finally:
         if tracer is not None:
             tracer.__exit__(None, None, None)
         if state is not None:
-            state.pop("piv", None)
-            folder.teardown(state)
-    setup_s = out["t0"] - t_start
-    log(f"window: {out['fields']} fields in {seconds} s; set-up {setup_s:.3f} s")
+            cell.drive.teardown(state)
+    setup_s = out["t0"] - t_start - out.get("harness_s", 0.0)
+    log(f"window: {out['fields']} fields in {seconds} s; set-up {setup_s:.3f} s "
+        f"(the harness's own {out.get('harness_s', 0.0):.3f} s left out)")
     t = time.perf_counter()
     trace = summarize(tracer.events()) if tracer is not None else None
     if tracer is not None:

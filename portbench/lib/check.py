@@ -1,5 +1,6 @@
 """The decision of ``correct``: the sampled answers of the window against
-the plain reference (``reference/piv.py``) run on the same frames.
+the plain reference that the cell's configuration names
+(``reference/<name>.py``, ``cell.reference``) run on the same frames.
 
 Numbers compared, each against its limit in ``limits/<cell>.json``:
 
@@ -25,14 +26,13 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..reference import piv as ref
-
 # the shares of vectors read above these gaps
 OVER_PX = {"uv_over_1e-4px_pct": 1e-4, "uv_over_1e-3px_pct": 1e-3}
 
 
-def reference_answers(frames, pairs, engine_cfg: dict, precision: str = "float64"):
-    """``pair -> ((x, y, u, v) or None, invalid)`` of the reference."""
+def reference_answers(ref, frames, pairs, engine_cfg: dict, precision: str = "float64"):
+    """``pair -> ((x, y, u, v) or None, invalid)`` of the reference module
+    ``ref``."""
     fa, fb = frames
     out = {}
     for k in sorted(set(pairs)):
@@ -40,9 +40,9 @@ def reference_answers(frames, pairs, engine_cfg: dict, precision: str = "float64
     return out
 
 
-def numbers(samples: List[dict], answers: Dict, engine_cfg: dict) -> Dict[str, float]:
+def numbers(ref, samples: List[dict], answers: Dict, engine_cfg: dict) -> Dict[str, float]:
     """The compared numbers of ``samples`` (``pair``, ``field``,
-    ``invalid``) against ``answers``."""
+    ``invalid``) against ``answers``; ``ref``'s settings give the units."""
     c = ref.settings(engine_cfg)
     unit = c["scale"] / c["dt"] * 1000
     xy, skips, gaps, flags, masks = 0.0, 0, [], 0, 0
@@ -100,9 +100,9 @@ def report(table: Dict[str, dict], readings: Dict[str, float]) -> None:
 
 def decide(cell, samples: List[dict], precision: str = "float64"):
     """``(correct, table, numbers)`` of a window's sampled answers."""
-    answers = reference_answers(cell.frames, [s["pair"] for s in samples],
+    answers = reference_answers(cell.reference, cell.frames, [s["pair"] for s in samples],
                                 cell.reference_config, precision)
-    nums = numbers(samples, answers, cell.reference_config)
+    nums = numbers(cell.reference, samples, answers, cell.reference_config)
     ok, table = judge(nums, cell.limits["limits"], len(samples),
                       int(cell.limits.get("least_checked", 1)))
     return ok, table, nums

@@ -29,6 +29,7 @@ import torch
 
 from .sample import Reservoir
 
+DRIVE = True
 # the tails run on this many threads, as the program's ``OfflinePIV``
 # drainer does with its default four decode threads
 TAIL_THREADS = 4
@@ -55,7 +56,7 @@ def _give(q: "queue.Queue", item, errors: list) -> bool:
     return False
 
 
-def setup(cell, device):
+def warm_engine(cell, device):
     """The engine, its tail and the warm-up: one dispatch at the batch and
     one host tail."""
     from torchpiv_tpu_torch.config import PIVConfig
@@ -74,11 +75,21 @@ def setup(cell, device):
     return engine, tail
 
 
-def window(cell, device, engine, tail, seconds: float, seed: int, traced: bool,
+def setup(cell, device, seconds: float, seed: int) -> dict:
+    engine, tail = warm_engine(cell, device)
+    return {"engine": engine, "tail": tail, "device": device}
+
+
+def teardown(state: dict) -> None:
+    state.clear()
+
+
+def window(cell, state: dict, seconds: float, seed: int, traced: bool,
            on_open=None, on_close=None):
     """Run the window; returns the run's records (see ``cell.Records``)."""
     from torchpiv_tpu_torch.pipeline import packed_forward
 
+    engine, tail, device = state["engine"], state["tail"], state["device"]
     cfg = cell.config
     B = cfg["batch"]
     inflight = int(cfg.get("inflight", 8))

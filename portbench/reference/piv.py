@@ -21,7 +21,11 @@ invalid)`` (pixels, image axes) and ``tail(u, v, invalid, cfg)`` the user's
 ``(x, y, u, v)``, or None where more than half of the field is invalid.
 ``cfg`` is the ``engine`` group of a configuration file plus its
 ``frame_shape``; keys it leaves out take the engine's documented defaults
-(``DEFAULTS``).
+(``DEFAULTS``).  ``settings`` refuses, with a ``ValueError`` that names the
+key, every key whose semantics this reference does not compute (``ONLY``
+lists the values it does compute), so that a configuration with another
+correlation, fit, validation or infill is never compared with the wrong
+arithmetic: such a configuration names a reference of its own.
 """
 from __future__ import annotations
 
@@ -36,9 +40,33 @@ DEFAULTS = dict(multipass=1, multipass_mode="CWS", multipass_scale=2.0,
                 val_ratio=1.2, validation_window=3, max_shift=None,
                 def_margin=2, scale=1.0, dt=1.0)
 CHUNK = 1 << 16  # windows correlated at a time
+# keys whose value, any value, the reference computes with
+COMPUTED = ("frame_shape", "wind_size", "overlap", "multipass", "multipass_scale",
+            "val_ratio", "validation_window", "max_shift", "def_margin", "scale", "dt")
+# keys that choose only how the program computes the same arithmetic
+IMPLEMENTATION = ("fused", "peakfit", "correlator", "dft_precision", "use_pallas",
+                  "shift_variant", "pallas_interpret", "shift_maps", "complex_mm",
+                  "extract_variant")
+# parameters of features that ``ONLY`` holds off: they act on nothing here
+INERT = ("median_threshold", "rpc_diameter", "fallback_threshold")
+# keys whose semantics the reference computes at these values alone
+ONLY = {"multipass_mode": ("CWS", "DEF"), "cws_interp": ("bilinear",),
+        "correlation": ("scc",), "subpixel": ("gauss3",), "window_weight": (None,),
+        "median_filter": (None,), "u_limits": (None,), "v_limits": (None,),
+        "global_std": (None,), "second_peak_fallback": (False,), "validate": (True,),
+        "infill": ("host",), "edge_exact": (True,), "dtype": ("float32",)}
 
 
 def settings(cfg: dict) -> dict:
+    """``cfg`` over ``DEFAULTS``; a ``ValueError`` naming the first key
+    whose semantics the reference does not compute."""
+    for key, value in cfg.items():
+        if key in ONLY:
+            if value not in ONLY[key]:
+                raise ValueError(f"the reference computes {key} only at "
+                                 f"{list(ONLY[key])}, not {value!r}")
+        elif key not in COMPUTED + IMPLEMENTATION + INERT:
+            raise ValueError(f"the reference does not compute the key {key!r}")
     out = dict(DEFAULTS)
     out.update(cfg)
     return out
@@ -268,8 +296,6 @@ def fields(frame_a: torch.Tensor, frame_b: torch.Tensor, cfg: dict,
     fb = frame_b.to(ar.dtype)
     passes = schedule(c)
     mode = c["multipass_mode"]
-    if mode not in ("CWS", "DEF"):
-        raise ValueError(f"the reference runs CWS and DEF, not {mode!r}")
     vr, vw = c["val_ratio"], c["validation_window"]
     dev = fa.device
 

@@ -48,7 +48,7 @@ def test_cell_resolves(cell):
     assert NAME.match(cell["name"]) and cell["chips"] in (1, 4)
     assert len(cell["why"]) <= 200
     c = Cell(cell["name"], BENCH)
-    assert c.traffic["drive"] in ("staged", "folder")
+    assert c.drive.DRIVE is True and c.reference is not None
     assert c.traffic["unique_pairs"] % c.config["batch"] == 0
     assert set(c.limits["limits"]) >= {"xy_gap_px", "skip_mismatch", "uv_gap_p99_px"}
     reported = {m["name"] for m in c.end_to_end}

@@ -20,6 +20,7 @@ BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
 CELLS = [w["name"] for w in BENCH["workloads"]]
 SMALL = dict(frame_shape=(192, 192), unique_pairs=8, batch=4, check_pairs=3)
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
+WINDOW_S = 2.0  # a few batches of the small dense cell on a share of this CPU
 
 
 @pytest.fixture(autouse=True)
@@ -28,7 +29,7 @@ def own_tmpdir(tmp_path, monkeypatch):
 
 
 def run(name, traced=False, seed=2**31 + 11):
-    return cellmod.run(name, seed, 1.0, traced, torch.device("cpu"),
+    return cellmod.run(name, seed, WINDOW_S, traced, torch.device("cpu"),
                        time.perf_counter(), BENCH, shrink=SMALL)
 
 
@@ -165,3 +166,34 @@ def test_folder_that_runs_dry_raises(monkeypatch, margin, where):
     with pytest.raises(RuntimeError, match=f"ran out.*{where}"):
         cellmod.run("cws64.folder", 2**31 + 5, 30.0, False, torch.device("cpu"),
                     time.perf_counter(), BENCH, shrink=SMALL)
+
+
+def test_folder_setup_leaves_out_the_harness_write(monkeypatch):
+    """``setup_s`` is the time to the window's opening less the folder's
+    writing (``harness_s``), here made at least ``SLEEP_S`` long."""
+    from portbench.lib import folder
+
+    SLEEP_S = 2.0
+    real_write, real_window = folder.write_folder, folder.window
+    seen = {}
+
+    def slow_write(*args, **kw):
+        time.sleep(SLEEP_S)
+        return real_write(*args, **kw)
+
+    def window(*args, **kw):
+        out = real_window(*args, **kw)
+        seen.update(t0=out["t0"], harness_s=out["harness_s"])
+        return out
+
+    monkeypatch.setattr(folder, "write_folder", slow_write)
+    monkeypatch.setattr(folder, "window", window)
+    # names enough for the window at any pace this CPU reaches
+    monkeypatch.setattr(folder, "engine_pace", lambda cell, device: 50.0)
+    t_start = time.perf_counter()
+    line = cellmod.run("cws64.folder", 2**31 + 29, 1.0, False, torch.device("cpu"),
+                       t_start, BENCH, shrink=SMALL)
+    assert seen["harness_s"] >= SLEEP_S
+    setup_s = line["metrics"]["setup_s"]["value"]
+    assert setup_s == pytest.approx(seen["t0"] - t_start - seen["harness_s"], abs=1e-9)
+    assert 0 < setup_s < seen["t0"] - t_start - SLEEP_S

@@ -2,6 +2,7 @@
 what their docstrings say."""
 from __future__ import annotations
 
+import json
 import os
 import sys
 
@@ -66,3 +67,33 @@ def test_tail_infills_and_flips():
     assert np.allclose(uu, 1000.0)
     assert np.allclose(vv, -1000.0 * np.arange(7)[::-1, None])
     assert x.shape == (7, 7) and x[0, 0] == 8.0 + (63 - (6 * 8 + 15)) // 2
+
+
+REFUSED = [("multipass_mode", "DWS"), ("cws_interp", "bicubic"), ("correlation", "rpc"),
+           ("subpixel", "gauss2d"), ("window_weight", "gaussian"),
+           ("median_filter", "normmedian"), ("u_limits", [-5, 5]), ("v_limits", [-5, 5]),
+           ("global_std", 3.0), ("second_peak_fallback", True), ("validate", False),
+           ("infill", "fused"), ("edge_exact", False), ("dtype", "bfloat16"),
+           ("no_such_key", 1)]
+PASSED = [("fused", "split"), ("peakfit", "pallas"), ("correlator", "matmul"),
+          ("dft_precision", "default"), ("use_pallas", "off"), ("shift_variant", "bf16"),
+          ("dtype", "float32"), ("correlation", "scc"), ("multipass_mode", "DEF")]
+BASE = {"frame_shape": [64, 64], "wind_size": 16, "overlap": 8}
+
+
+@pytest.mark.parametrize("key,value", REFUSED)
+def test_refuses_semantics_it_does_not_compute(key, value):
+    with pytest.raises(ValueError, match=key):
+        piv.settings({**BASE, key: value})
+
+
+@pytest.mark.parametrize("key,value", PASSED)
+def test_implementation_choices_pass(key, value):
+    assert piv.settings({**BASE, key: value})[key] == value
+
+
+@pytest.mark.parametrize("name", ["cws64", "def_dense"])
+def test_the_configurations_pass(name):
+    cfg = json.load(open(os.path.join(ROOT, "portbench", "configs", f"{name}.json")))
+    assert cfg.get("reference", "piv") == "piv"
+    piv.settings({**cfg["engine"], "frame_shape": cfg["frame_shape"]})
